@@ -24,6 +24,19 @@ exit, and no result line:
             sim_3020 frames 29/30/31, B=16 tiles of 16²) through the warp
             kernel, equal to the plain clamped warp (1e-5); the launch
             counts are reset just before this path and read just after
+7. train    the flagship training recipe (pass 1, 4x, G base 32 with 2 res
+            blocks, D base 32, B=16, LR tile 16, temporal D, hinge, lazy
+            R1 γ=10 every 16 steps, TTUR, EMA 0.999) on a synthetic
+            2 sims × 4 frames 32³→128³ dataset, through Trainer.fit:
+            (a) float32 steps (TF32 off, lrgan = lrdisc = adamEps = 1)
+            from the same seeded weights on one injected batch, on the
+            card and on the CPU: losses within rtol 1e-3; at step 1 (R1
+            skipped) the updated G, Ds, Dt and EMA parameters within atol
+            1e-4, at step 0 (R1 applied) Ds and Dt; (b) bf16: 3 warm-up
+            steps, then 3 windows of 32 timed steps (each with two R1
+            steps) between CUDA events, with the launch counts reset just
+            before and read just after: 6 warp launches per step, finite
+            metrics, EMA ≠ G
 
 Then one JSON line listing every kernel, the card's name and power limit
 (nvidia-smi), and last the line
@@ -277,16 +290,16 @@ def phase_align(dev, wk):
     use_kernel = losses.use_warp_kernel(cfg.loss.warp_backend, dev)
     assert use_kernel
     md = cfg.loss.warp_max_disp
-    wk.launches = 0                                    # main path starts
+    wk.launches = 0                                    # path starts
     with torch.no_grad():
         fakes = loop.aligned_fakes(g1, batch, 1, 2, 4, use_kernel, md)
         reals = loop.aligned_reals(batch, 1, 2, 4, use_kernel, md)
     torch.cuda.synchronize()
-    launches = wk.launches                             # main path ends
+    launches = wk.launches                             # path ends
     assert launches == 4, launches
     vel = loop.vel_hr(batch, 1, 2, 4)
     with torch.no_grad():
-        f_prev, f_next = g1(batch["lr_prev"]), g1(batch["lr_next"])
+        f_prev, _, f_next = loop.fake_triplet(g1, batch, 1, 2)
         plain = [wk.advect_2d_clamped_ref(f_prev, vel, 1.0, md),
                  wk.advect_2d_clamped_ref(f_next, vel, -1.0, md),
                  wk.advect_2d_clamped_ref(batch["hr_prev"], vel, 1.0, md),
@@ -299,6 +312,121 @@ def phase_align(dev, wk):
     done(t0, launches=launches, max_abs_err=err,
          vel_hr_max=float(vel.abs().max()), share_beyond_clamp=clamped)
     return launches, err
+
+
+TRAIN_METRICS = ("d_loss", "dt_loss", "g_loss", "g_adv", "l1", "feat", "g_t",
+                 "psnr")
+
+
+def _train_state(rt):
+    """Every parameter of the step's nets and the EMA, on the host."""
+    out = {f"{net}.{k}": v.detach().cpu()
+           for net in ("gen", "ds", "dt")
+           for k, v in getattr(rt, net).state_dict().items()}
+    out.update({f"ema.{k}": v.cpu() for k, v in rt.ema.items()})
+    return out
+
+
+def _parity_step(cfg, ds, batch, step, dev, cpu_tc):
+    """One float32 step at ``step`` on the card and on the CPU from the
+    same seeded weights and batch → (loss max rel err, param max abs err
+    per net)."""
+    from mpgan_torch.data.pipeline import TileCreator
+    from mpgan_torch.train import loop
+
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        tc = cpu_tc if d.type == "cpu" else TileCreator(
+            ds, 16, density_threshold=0.0, device=d)
+        rt = loop.Trainer(cfg, tc, device=d).runtime()
+        rt.step = step
+        b = {k: v.to(d) for k, v in batch.items()}
+        rt.step_stable.sample = lambda rng, b=b: b
+        m = loop.read_metrics(rt.step_stable(1.0, torch.Generator(device=d)))
+        runs[d.type] = (m, _train_state(rt))
+    (mg, pg), (mc, pc) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12)
+                   for k in TRAIN_METRICS)
+    err = {}
+    for k in pc:
+        net = k.split(".")[0]
+        err[net] = max(err.get(net, 0.0), float((pg[k] - pc[k]).abs().max()))
+    return loss_rel, err
+
+
+def phase_train(dev, wk):
+    from mpgan_torch.data.pipeline import TileCreator
+    from mpgan_torch.train import loop, recipe
+
+    t0 = phase("7 train: flagship pass-1 4x temporal GAN, B=16 tile 16")
+    ds = recipe.synthetic_dataset()          # 2 sims x 4 frames, 32^3->128^3
+
+    # (a) float32 steps on the card and on the CPU, same weights + batch:
+    # step 1 (R1 skipped) checks every updated parameter; step 0 (R1
+    # applied) checks the losses and the discriminators, which R1 updates.
+    # At step 0 G is reported, not held: with lr = 1, the R1-scaled D
+    # update (γ·interval = 160) moves D weights by up to 1, and G's
+    # gradient through that D carries f32 summation-order differences of
+    # about 1e-4.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = recipe.flagship_config("float32")
+    cfg.train.learning_rate = cfg.train.lr_disc = cfg.train.adam_eps = 1.0
+    cpu_tc = TileCreator(ds, 16, density_threshold=0.0, device="cpu")
+    batch = cpu_tc.sample_pass1(torch.Generator().manual_seed(0), 16, True)
+    parity = {}
+    for step in (1, 0):
+        loss_rel, err = _parity_step(cfg, ds, batch, step, dev, cpu_tc)
+        held = err if step == 1 else {k: err[k] for k in ("ds", "dt")}
+        assert loss_rel <= 1e-3, (step, loss_rel)
+        assert max(held.values()) <= 1e-4, (step, err)
+        parity[f"step{step}"] = {"loss_max_rel_err": loss_rel,
+                                 "param_max_abs_err": err}
+    torch.backends.cudnn.allow_tf32 = True
+    print("   f32 step card vs CPU " + json.dumps(parity), flush=True)
+
+    # (b) bf16 steps through Trainer.fit: 3 windows of 32 steps, each with
+    # two R1 steps
+    cfg = recipe.flagship_config("bfloat16")
+    tc = TileCreator(ds, 16, density_threshold=0.0, device=dev)
+    tr = loop.Trainer(cfg, tc, device=dev)
+    tr.fit(3, log_every=3)                   # warm-up (builds hrz, R1 at 0)
+    n, windows = 32, 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(windows + 1)]
+    host = [time.perf_counter()]
+    wk.launches = 0                                    # path starts
+    events[0].record()
+    for w in range(windows):
+        out = tr.fit(3 + (w + 1) * n, start_it=3 + w * n, log_every=n)
+        events[w + 1].record()
+        host.append(time.perf_counter())   # fit read its metrics: in sync
+    torch.cuda.synchronize()
+    launches = wk.launches                             # path ends
+    ms = [events[w].elapsed_time(events[w + 1]) / n for w in range(windows)]
+    host_ms = [(host[w + 1] - host[w]) * 1e3 / n for w in range(windows)]
+    steps = n * windows
+    assert launches == 6 * steps, launches
+    assert all(np.isfinite(out[k]) for k in TRAIN_METRICS), out
+    rt = tr.rt
+    ema_gap = max(float((rt.ema[k] - p.detach()).abs().max())
+                  for k, p in rt.gen.named_parameters())
+    assert ema_gap > 0, ema_gap
+    assert rt.step == 3 + steps
+    med = sorted(ms)[windows // 2]
+    res = {"ms_per_step": med, "ms_per_step_windows": ms,
+           "host_ms_per_step_windows": host_ms,
+           "steps_per_s": 1e3 / med, "samples_per_s": 16e3 / med,
+           "steps": steps, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "warp_launches": launches,
+           "warp_launches_per_step": launches / steps,
+           "ema_max_abs_gap": ema_gap, "f32_parity": parity,
+           "metrics": {k: out[k] for k in TRAIN_METRICS}}
+    print("   train " + json.dumps(res), flush=True)
+    done(t0)
+    return res
 
 
 def main():
@@ -323,14 +451,17 @@ def main():
     bundled_lr, quality = phase_bundled(dev)
     bench = phase_bench(dev)
     phase_serve(dev, bundled_lr)
-    launches, align_err = phase_align(dev, wk)
+    align_launches, align_err = phase_align(dev, wk)
+    train = phase_train(dev, wk)
 
     small, large = times[(16, 64, 64)], times[(256, 256, 256)]
     kernels = [{
         "name": "warp2d", "route": "cuda",
         "source": "mpgan_torch/csrc/warp.cu",
         "replaces": "mpgan_tpu/ops/warp_pallas.py:89",
-        "launches": launches,
+        "launches": train["warp_launches"],
+        "launches_per_train_step": train["warp_launches_per_step"],
+        "launches_align": align_launches,
         "max_abs_err": max(max_err, align_err),
         "ms": small["ms"], "plain_ms": small["plain_ms"],
         "bound_ms": small["bound_ms"], "bound_by": "bytes",
@@ -339,7 +470,7 @@ def main():
         "large": large, "build_s": build_s,
     }]
     print(json.dumps({"kernels": kernels, "main_path": bench,
-                      "bundled": quality}), flush=True)
+                      "bundled": quality, "train": train}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

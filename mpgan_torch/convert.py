@@ -1,5 +1,5 @@
-"""Flax generator parameters (as numpy) → torch ``state_dict``, and the
-``.npz`` weight files the port reads.
+"""Flax generator and discriminator parameters (as numpy) → torch
+``state_dict``, and the ``.npz`` weight files the port reads.
 
 The JAX package stores generators as orbax checkpoints, which the port
 cannot read (it imports no JAX). ``scripts/export_torch_weights.py`` — a
@@ -38,8 +38,12 @@ def flax_to_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
     """Flax param tree (nested dict of numpy arrays, or its flat
     ``a/b/kernel`` form) → torch ``state_dict``.
 
-    Conv kernels go HWIO → OIHW; ``kernel`` becomes ``weight`` and ``/``
-    becomes ``.`` (``block_0_0/conv1/kernel`` → ``block_0_0.conv1.weight``).
+    Conv kernels go HWIO → OIHW and Dense kernels (in, out) → (out, in);
+    ``kernel`` becomes ``weight`` and ``/`` becomes ``.``
+    (``block_0_0/conv1/kernel`` → ``block_0_0.conv1.weight``). This takes
+    the generator's trees and the discriminators' (whose ``out`` is a
+    Dense over an NHWC flatten, which the port's Discriminator flattens in
+    the same order).
     """
     flat = (params_np if all(isinstance(v, np.ndarray)
                              for v in params_np.values())
@@ -48,10 +52,13 @@ def flax_to_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
     for key, arr in flat.items():
         *mod, leaf = key.split("/")
         if leaf == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{key}: expected an HWIO conv kernel, "
-                                 f"got shape {arr.shape}")
-            t = torch.from_numpy(np.array(arr.transpose(3, 2, 0, 1)))
+            if arr.ndim == 4:
+                t = torch.from_numpy(np.array(arr.transpose(3, 2, 0, 1)))
+            elif arr.ndim == 2:
+                t = torch.from_numpy(np.array(arr.T))
+            else:
+                raise ValueError(f"{key}: expected an HWIO conv or (in, out) "
+                                 f"dense kernel, got shape {arr.shape}")
             name = "weight"
         elif leaf == "bias":
             t = torch.from_numpy(np.array(arr))

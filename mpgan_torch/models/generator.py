@@ -12,7 +12,8 @@ linearly upsampled input density (channel 0) at the product factor.
 Numerics as in flax's ``nn.Conv(dtype=...)``: parameters are float32 and
 are cast to ``dtype`` for the computation, which runs in ``dtype``; the
 output is cast to ``out_dtype`` (float32 when None). Public layout is NHWC;
-the stack runs in NCHW.
+the stack runs in NCHW. A fresh model is initialised as flax does it
+(:mod:`mpgan_torch.models.init`), from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from mpgan_torch.models import init
 from mpgan_torch.ops.upsample import upsample_nchw
 
 
@@ -37,11 +39,12 @@ class ResBlock(nn.Module):
     """Two 3×3 convs with a residual connection; a 1×1 ``proj`` exists only
     when the channel count changes."""
 
-    def __init__(self, in_filters: int, filters: int):
+    def __init__(self, in_filters: int, filters: int,
+                 generator: torch.Generator):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_filters, filters, 3, padding=1)
-        self.conv2 = nn.Conv2d(filters, filters, 3, padding=1)
-        self.proj = (nn.Conv2d(in_filters, filters, 1)
+        self.conv1 = init.conv2d(in_filters, filters, 3, generator, padding=1)
+        self.conv2 = init.conv2d(filters, filters, 3, generator, padding=1)
+        self.proj = (init.conv2d(in_filters, filters, 1, generator)
                      if in_filters != filters else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +60,8 @@ class Generator(nn.Module):
     Call: ``(B, H, W, C_in) → (B, H·Πfh, W·Πfw, out_channels)`` for the
     first ``stage`` stages. ``upsample_mode``/``skip_mode`` are the JAX
     package's lowering knobs; they are accepted and change nothing here.
+    ``generator`` draws the initial weights (a CPU generator seeded with 0
+    when None).
     """
 
     def __init__(self, in_channels: int,
@@ -67,23 +72,27 @@ class Generator(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  out_dtype: torch.dtype | None = None,
                  remat: bool = False, upsample_mode: str = "conv_dense",
-                 skip_mode: str = "resize"):
+                 skip_mode: str = "resize",
+                 generator: torch.Generator | None = None):
         super().__init__()
+        generator = init.default_generator(generator)
         self.factors = tuple(tuple(f) for f in factors)
         self.n_res_blocks = n_res_blocks
         self.global_skip = global_skip
         self.dtype = dtype
         self.out_dtype = out_dtype
         self.remat = remat
-        self.stem = nn.Conv2d(in_channels, base_filters, 3, padding=1)
+        self.stem = init.conv2d(in_channels, base_filters, 3, generator,
+                                padding=1)
         width = base_filters
         for k in range(len(self.factors)):
             filters = max(base_filters // (2 ** (k + 1)), min_filters)
             for i in range(n_res_blocks):
-                self.add_module(f"block_{k}_{i}", ResBlock(width, filters))
+                self.add_module(f"block_{k}_{i}",
+                                ResBlock(width, filters, generator))
                 width = filters
-            self.add_module(f"head_{k}", nn.Conv2d(width, out_channels, 3,
-                                                   padding=1))
+            self.add_module(f"head_{k}", init.conv2d(
+                width, out_channels, 3, generator, padding=1))
 
     def forward(self, x: torch.Tensor, stage: int | None = None,
                 alpha: float = 1.0, fade: bool = False) -> torch.Tensor:
@@ -126,29 +135,33 @@ class Generator(nn.Module):
 
 def make_pass1(stages: int, base_filters: int = 32, n_res_blocks: int = 2,
                dtype=torch.float32, remat: bool = False, out_dtype=None,
-               in_channels: int = 4, skip_mode: str = "resize") -> Generator:
+               in_channels: int = 4, skip_mode: str = "resize",
+               generator: torch.Generator | None = None) -> Generator:
     """Pass-1 generator: isotropic in-plane 2× per stage (2^stages total)."""
     return Generator(in_channels, factors=tuple((2, 2) for _ in range(stages)),
                      base_filters=base_filters, n_res_blocks=n_res_blocks,
                      dtype=dtype, remat=remat, out_dtype=out_dtype,
-                     skip_mode=skip_mode)
+                     skip_mode=skip_mode, generator=generator)
 
 
 def make_pass2(stages: int, base_filters: int = 32, n_res_blocks: int = 2,
                dtype=torch.float32, remat: bool = False, out_dtype=None,
-               in_channels: int = 4, skip_mode: str = "resize") -> Generator:
+               in_channels: int = 4, skip_mode: str = "resize",
+               generator: torch.Generator | None = None) -> Generator:
     """Pass-2 generator: z-only (h-axis) 2× per stage; w axis already HR."""
     return Generator(in_channels, factors=tuple((2, 1) for _ in range(stages)),
                      base_filters=base_filters, n_res_blocks=n_res_blocks,
                      dtype=dtype, remat=remat, out_dtype=out_dtype,
-                     skip_mode=skip_mode)
+                     skip_mode=skip_mode, generator=generator)
 
 
 def make_pass3(base_filters: int = 32, n_res_blocks: int = 2,
                dtype=torch.float32, remat: bool = False, out_dtype=None,
-               in_channels: int = 4) -> Generator:
+               in_channels: int = 4,
+               generator: torch.Generator | None = None) -> Generator:
     """Optional pass-3 refiner: constant resolution (factors (1,1)) over yz
     slices of the full-res volume."""
     return Generator(in_channels, factors=((1, 1),),
                      base_filters=base_filters, n_res_blocks=n_res_blocks,
-                     dtype=dtype, remat=remat, out_dtype=out_dtype)
+                     dtype=dtype, remat=remat, out_dtype=out_dtype,
+                     generator=generator)

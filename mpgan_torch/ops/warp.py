@@ -4,7 +4,7 @@ Counterpart of ``mpgan_tpu/ops/warp.py`` ``advect_2d`` / ``advect_2d_batch``:
 for each target cell, sample the source field at the backtraced position
 ``x − dt·v(x)`` with border-clamped bilinear interpolation. Velocity
 channels are (v_w, v_h) — x component first — and are reversed to (y, x)
-coordinates. MacCormack and the 3D warp wait for the trainer's data path.
+coordinates. MacCormack and the 3D warp wait for datagen, their only user.
 
 The CUDA kernel for the same warp (with a displacement clamp) is in
 :mod:`mpgan_torch.ops.warp_kernel`.

@@ -61,21 +61,26 @@ def test_params_unused_flag_aborts():
 
 
 def test_from_cli_matches_jax_config():
+    """Every field of the data, model, loss and train sections parses to the
+    JAX package's value, defaults and flags alike; an unknown flag aborts."""
+    import dataclasses
     argv = ["upRes", "8", "tileSizeLow", "12", "useVorticities", "1",
             "macRecenter", "1", "genFilters", "16", "genBlocks", "3",
-            "dtype", "float32", "sliceChunk", "64"]
+            "dtype", "float32", "sliceChunk", "64", "basePath", "d/",
+            "fromSim", "3", "toSim", "5", "frameMax", "9",
+            "densityThreshold", "0.01", "rot", "1", "discFilters", "12",
+            "ganLoss", "hinge", "r1Gamma", "10", "r1Interval", "16",
+            "kAdv", "0.5", "kt", "0", "lrgan", "1e-3", "lrdisc", "4e-4",
+            "adamEps", "1e-6", "useTempoD", "0", "emaDecay", "0.999",
+            "useGrowing", "1", "alphaIters", "7", "randSeed", "3",
+            "profileDir", "p/", "debugNans", "1", "saveInterval", "0"]
     t = tconfig.from_cli(argv)
     j = jconfig.from_cli(argv)
-    for sect, fields in (("data", ("up_res", "tile_size_low",
-                                   "use_velocities", "use_vorticities",
-                                   "mac_recenter")),
-                         ("model", ("n_base_filters", "n_res_blocks",
-                                    "stages", "dtype")),
-                         ("loss", ("warp_backend", "warp_max_disp")),
-                         ("infer", ("slice_chunk",))):
-        for f in fields:
-            assert getattr(getattr(t, sect), f) == \
-                getattr(getattr(j, sect), f), (sect, f)
+    for sect in ("data", "model", "loss", "train"):
+        for f in dataclasses.fields(getattr(t, sect)):
+            assert getattr(getattr(t, sect), f.name) == \
+                getattr(getattr(j, sect), f.name), (sect, f.name)
+    assert t.infer.slice_chunk == j.infer.slice_chunk == 64
     assert t.model.stages == 3
     with pytest.raises(SystemExit):
-        tconfig.from_cli(["upRes", "4", "basePath", "data/"])
+        tconfig.from_cli(["upRes", "4", "bogusFlag", "1"])
