@@ -28,15 +28,20 @@ exit, and no result line:
             blocks, D base 32, B=16, LR tile 16, temporal D, hinge, lazy
             R1 γ=10 every 16 steps, TTUR, EMA 0.999) on a synthetic
             2 sims × 4 frames 32³→128³ dataset, through Trainer.fit:
-            (a) float32 steps (TF32 off, lrgan = lrdisc = adamEps = 1)
-            from the same seeded weights on one injected batch, on the
-            card and on the CPU: losses within rtol 1e-3; at step 1 (R1
-            skipped) the updated G, Ds, Dt and EMA parameters within atol
-            1e-4, at step 0 (R1 applied) Ds and Dt; (b) bf16: 3 warm-up
-            steps, then 3 windows of 32 timed steps (each with two R1
-            steps) between CUDA events, with the launch counts reset just
-            before and read just after: 6 warp launches per step, finite
-            metrics, EMA ≠ G
+            (a) one batch of draws assembled by the card's and the CPU's
+            tile creator (max |Δ| ≤ 1e-6); float32 steps (TF32 off,
+            lrgan = adamEps = 1) from the same seeded weights on that
+            batch, on the card and on the CPU: losses within rtol 1e-3;
+            the updated G, Ds, Dt and EMA parameters within atol 1e-4 at
+            step 1 (R1 skipped, lrdisc 1) and step 0 (R1 applied, lrdisc
+            1e-2), Ds and Dt at step 0 with lrdisc 1; the CPU step without
+            oneDNN is reported beside each as the spread of float32
+            summation order; (b) bf16: 3 warm-up steps, then 3 windows of
+            32 timed steps (each with two R1 steps) between CUDA events,
+            with the launch counts reset just before and read just after:
+            6 warp launches per step, finite metrics, EMA ≠ G; (c) pass 2
+            (D factors (2, 1)), bf16: 4 steps, 6 warp launches per step,
+            finite metrics
 
 Then one JSON line listing every kernel, the card's name and power limit
 (nvidia-smi), and last the line
@@ -327,86 +332,109 @@ def _train_state(rt):
     return out
 
 
-def _parity_step(cfg, ds, batch, step, dev, cpu_tc):
-    """One float32 step at ``step`` on the card and on the CPU from the
-    same seeded weights and batch → (loss max rel err, param max abs err
-    per net)."""
-    from mpgan_torch.data.pipeline import TileCreator
+def _f32_step(cfg, tc, batch, step):
+    """One step at ``step`` from the seeded initial weights on the injected
+    ``batch``, on the tile creator's device → (metrics, every parameter on
+    the host)."""
     from mpgan_torch.train import loop
 
-    runs = {}
-    for d in (dev, torch.device("cpu")):
-        tc = cpu_tc if d.type == "cpu" else TileCreator(
-            ds, 16, density_threshold=0.0, device=d)
-        rt = loop.Trainer(cfg, tc, device=d).runtime()
-        rt.step = step
-        b = {k: v.to(d) for k, v in batch.items()}
-        rt.step_stable.sample = lambda rng, b=b: b
-        m = loop.read_metrics(rt.step_stable(1.0, torch.Generator(device=d)))
-        runs[d.type] = (m, _train_state(rt))
-    (mg, pg), (mc, pc) = runs["cuda"], runs["cpu"]
-    loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12)
+    d = tc.device
+    rt = loop.Trainer(cfg, tc, device=d).runtime()
+    rt.step = step
+    b = {k: v.to(d) for k, v in batch.items()}
+    rt.step_stable.sample = lambda rng: b
+    m = loop.read_metrics(rt.step_stable(1.0, torch.Generator(device=d)))
+    return m, _train_state(rt)
+
+
+def _step_gap(run, ref):
+    """(max relative gap of the losses, max abs gap of the parameters per
+    net) between two ``_f32_step`` results."""
+    (m, p), (mr, pr) = run, ref
+    loss_rel = max(abs(m[k] - mr[k]) / max(abs(mr[k]), 1e-12)
                    for k in TRAIN_METRICS)
     err = {}
-    for k in pc:
+    for k in pr:
         net = k.split(".")[0]
-        err[net] = max(err.get(net, 0.0), float((pg[k] - pc[k]).abs().max()))
+        err[net] = max(err.get(net, 0.0), float((p[k] - pr[k]).abs().max()))
     return loss_rel, err
 
 
 def phase_train(dev, wk):
-    from mpgan_torch.data.pipeline import TileCreator
+    from mpgan_torch.data import pipeline
     from mpgan_torch.train import loop, recipe
 
     t0 = phase("7 train: flagship pass-1 4x temporal GAN, B=16 tile 16")
     ds = recipe.synthetic_dataset()          # 2 sims x 4 frames, 32^3->128^3
-
-    # (a) float32 steps on the card and on the CPU, same weights + batch:
-    # step 1 (R1 skipped) checks every updated parameter; step 0 (R1
-    # applied) checks the losses and the discriminators, which R1 updates.
-    # At step 0 G is reported, not held: with lr = 1, the R1-scaled D
-    # update (γ·interval = 160) moves D weights by up to 1, and G's
-    # gradient through that D carries f32 summation-order differences of
-    # about 1e-4.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_tc = pipeline.TileCreator(ds, 16, density_threshold=0.0, device="cpu")
+    tc = pipeline.TileCreator(ds, 16, density_threshold=0.0, device=dev)
+
+    # (a) one batch of draws, assembled by the card's and the CPU's tile
+    # creator (each from its own hrz)
+    idx, st = cpu_tc.dense_idx_t, cpu_tc.st
+    draws = pipeline.draw(torch.Generator().manual_seed(0), 16, idx, st)
+    batch = pipeline.assemble_pass1(cpu_tc.lr, cpu_tc.hrz, idx, draws, "xy",
+                                    True, st)
+    on_card = pipeline.assemble_pass1(
+        tc.lr, tc.hrz, tc.dense_idx_t,
+        pipeline.Draws(*(t.to(dev) for t in draws)), "xy", True, tc.st)
+    assembly_err = max(float((on_card[k].cpu() - v).abs().max())
+                       for k, v in batch.items())
+    assert assembly_err <= 1e-6, assembly_err
+
+    # float32 steps from the same seeded weights on that batch, on the card
+    # and on the CPU (lrgan = adamEps = 1): step 1 (R1 skipped) and step 0
+    # (R1 applied) with lrdisc 1e-2 hold every parameter; step 0 with
+    # lrdisc 1 holds the losses, Ds and Dt, and reports G. The CPU again
+    # without oneDNN (another convolution summation order) is the witness
+    # of how far the float32 step itself is from one summation order to
+    # another.
     cfg = recipe.flagship_config("float32")
-    cfg.train.learning_rate = cfg.train.lr_disc = cfg.train.adam_eps = 1.0
-    cpu_tc = TileCreator(ds, 16, density_threshold=0.0, device="cpu")
-    batch = cpu_tc.sample_pass1(torch.Generator().manual_seed(0), 16, True)
+    cfg.train.learning_rate = cfg.train.adam_eps = 1.0
     parity = {}
-    for step in (1, 0):
-        loss_rel, err = _parity_step(cfg, ds, batch, step, dev, cpu_tc)
-        held = err if step == 1 else {k: err[k] for k in ("ds", "dt")}
-        assert loss_rel <= 1e-3, (step, loss_rel)
-        assert max(held.values()) <= 1e-4, (step, err)
-        parity[f"step{step}"] = {"loss_max_rel_err": loss_rel,
-                                 "param_max_abs_err": err}
+    for step, lr_disc in ((1, 1.0), (0, 1e-2), (0, 1.0)):
+        cfg.train.lr_disc = lr_disc
+        card = _f32_step(cfg, tc, batch, step)
+        cpu = _f32_step(cfg, cpu_tc, batch, step)
+        torch.backends.mkldnn.enabled = False
+        try:
+            cpu_other = _f32_step(cfg, cpu_tc, batch, step)
+        finally:
+            torch.backends.mkldnn.enabled = True
+        loss_rel, err = _step_gap(card, cpu)
+        saturated = step == 0 and lr_disc == 1.0
+        held = {k: err[k] for k in ("ds", "dt")} if saturated else err
+        assert loss_rel <= 1e-3, (step, lr_disc, loss_rel)
+        assert max(held.values()) <= 1e-4, (step, lr_disc, err)
+        w_rel, w_err = _step_gap(cpu_other, cpu)
+        parity[f"step{step}_lrdisc{lr_disc:g}"] = {
+            "loss_max_rel_err": loss_rel, "param_max_abs_err": err,
+            "cpu_no_onednn_loss_max_rel_err": w_rel,
+            "cpu_no_onednn_param_max_abs_err": w_err}
     torch.backends.cudnn.allow_tf32 = True
-    print("   f32 step card vs CPU " + json.dumps(parity), flush=True)
+    print("   f32 step card vs CPU " + json.dumps(
+        {"assembly_max_abs_err": assembly_err, **parity}), flush=True)
 
     # (b) bf16 steps through Trainer.fit: 3 windows of 32 steps, each with
     # two R1 steps
     cfg = recipe.flagship_config("bfloat16")
-    tc = TileCreator(ds, 16, density_threshold=0.0, device=dev)
     tr = loop.Trainer(cfg, tc, device=dev)
-    tr.fit(3, log_every=3)                   # warm-up (builds hrz, R1 at 0)
+    tr.fit(3, log_every=3)                   # warm-up (R1 at step 0)
     n, windows = 32, 3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(windows + 1)]
-    host = [time.perf_counter()]
     wk.launches = 0                                    # path starts
     events[0].record()
     for w in range(windows):
         out = tr.fit(3 + (w + 1) * n, start_it=3 + w * n, log_every=n)
         events[w + 1].record()
-        host.append(time.perf_counter())   # fit read its metrics: in sync
     torch.cuda.synchronize()
     launches = wk.launches                             # path ends
     ms = [events[w].elapsed_time(events[w + 1]) / n for w in range(windows)]
-    host_ms = [(host[w + 1] - host[w]) * 1e3 / n for w in range(windows)]
     steps = n * windows
     assert launches == 6 * steps, launches
     assert all(np.isfinite(out[k]) for k in TRAIN_METRICS), out
@@ -417,13 +445,25 @@ def phase_train(dev, wk):
     assert rt.step == 3 + steps
     med = sorted(ms)[windows // 2]
     res = {"ms_per_step": med, "ms_per_step_windows": ms,
-           "host_ms_per_step_windows": host_ms,
            "steps_per_s": 1e3 / med, "samples_per_s": 16e3 / med,
            "steps": steps, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "warp_launches": launches,
            "warp_launches_per_step": launches / steps,
            "ema_max_abs_gap": ema_gap, "f32_parity": parity,
+           "assembly_max_abs_err": assembly_err,
            "metrics": {k: out[k] for k in TRAIN_METRICS}}
+
+    # (c) pass 2 (4x along x, D factors (2, 1)), bf16: 4 steps through
+    # Trainer.fit, the first with R1
+    tr2 = loop.Trainer(cfg, tc, device=dev, pass_no=2)
+    wk.launches = 0                                    # path starts
+    out2 = tr2.fit(4, log_every=4)
+    torch.cuda.synchronize()
+    launches2 = wk.launches                            # path ends
+    assert launches2 == 6 * 4, launches2
+    assert all(np.isfinite(out2[k]) for k in TRAIN_METRICS), out2
+    res["pass2"] = {"steps": 4, "warp_launches": launches2,
+                    "metrics": {k: out2[k] for k in TRAIN_METRICS}}
     print("   train " + json.dumps(res), flush=True)
     done(t0)
     return res
@@ -462,6 +502,7 @@ def main():
         "launches": train["warp_launches"],
         "launches_per_train_step": train["warp_launches_per_step"],
         "launches_align": align_launches,
+        "launches_pass2": train["pass2"]["warp_launches"],
         "max_abs_err": max(max_err, align_err),
         "ms": small["ms"], "plain_ms": small["plain_ms"],
         "bound_ms": small["bound_ms"], "bound_by": "bytes",

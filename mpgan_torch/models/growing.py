@@ -13,26 +13,21 @@ import torch
 
 
 def migrate_params(old: Mapping[str, torch.Tensor],
-                   new: Mapping[str, torch.Tensor],
-                   strict: bool = True) -> dict[str, torch.Tensor]:
+                   new: Mapping[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
     """``new`` with every tensor of ``old`` copied over it (stage k → k+1).
 
-    ``strict``: every old key must exist in ``new`` with the same shape
-    (KeyError / ValueError otherwise); without it, such tensors are
-    skipped."""
+    Every old key must exist in ``new`` with the same shape (KeyError /
+    ValueError otherwise)."""
     merged = dict(new)
     for key, leaf in old.items():
         if key not in new:
-            if strict:
-                raise KeyError(f"param {key} missing in grown model — stage "
-                               "models are not nested")
-            continue
+            raise KeyError(f"param {key} missing in grown model — stage "
+                           "models are not nested")
         if leaf.shape != new[key].shape:
-            if strict:
-                raise ValueError(f"param {key} shape changed "
-                                 f"{tuple(leaf.shape)} → "
-                                 f"{tuple(new[key].shape)}")
-            continue
+            raise ValueError(f"param {key} shape changed "
+                             f"{tuple(leaf.shape)} → "
+                             f"{tuple(new[key].shape)}")
         merged[key] = leaf
     return merged
 
