@@ -7,11 +7,17 @@ Phases, in order; any failure ends the run with a traceback and a non-zero
 exit, and no result line:
 
 1. build    nvcc builds every kernel of the port from csrc/ (in parallel)
-2. warp     the warp kernel vs its plain version on the card: B=16 at 64²
-            (the trainer's shape) and B=256 at 256², dt ±1, displacements
-            beyond the ±8 clamp, zero velocity (max |Δ| ≤ 1e-5); gradients
-            through advect_2d_fast vs autograd of the plain version (1e-4);
-            kernel, plain, library (grid_sample) and bound times
+2. warp     every warp kernel vs its plain version on the card, at B=16
+            64² (the trainer's shape, one block per image in the
+            backward) and B=256 256² (tiled backward), velocity scales
+            1.5, 12 (beyond the ±8 clamp) and 0: the single-field and the
+            triplet forward (max |Δ| ≤ 1e-5); the gradients of every input
+            through advect_2d_fast and align_triplet_fast and the field
+            gradients as the train step asks for them (1e-4); each
+            kernel's time against its plain version, a library call
+            (grid_sample, grid_sampler_2d_backward) and its bound
+2b single  advect_2d_fast forward and backward at B=16 64², the launch
+            counts reset just before and read just after: 1 and 1
 3. bundled  the exported 4x L1 pair on sim_1010c frame 12 (32³→128³): f32
             with TF32 off equals the port's CPU output (atol 1e-4); bf16
             keeps PSNR ≥ 34.5 dB against the ground truth
@@ -21,9 +27,10 @@ exit, and no result line:
             3 requests (the bundled frame, a 64³ random frame twice) equal
             the direct call
 6. align    the trainer's fake- and real-triplet alignment (G1 in f32 on
-            sim_3020 frames 29/30/31, B=16 tiles of 16²) through the warp
-            kernel, equal to the plain clamped warp (1e-5); the launch
-            counts are reset just before this path and read just after
+            sim_3020 frames 29/30/31, B=16 tiles of 16²) through the
+            triplet kernel, equal to the plain version (1e-5); the launch
+            counts are reset just before this path and read just after:
+            2 forward, no backward
 7. train    the flagship training recipe (pass 1, 4x, G base 32 with 2 res
             blocks, D base 32, B=16, LR tile 16, temporal D, hinge, lazy
             R1 γ=10 every 16 steps, TTUR, EMA 0.999) on a synthetic
@@ -39,12 +46,14 @@ exit, and no result line:
             summation order; (b) bf16: 3 warm-up steps, then 3 windows of
             32 timed steps (each with two R1 steps) between CUDA events,
             with the launch counts reset just before and read just after:
-            6 warp launches per step, finite metrics, EMA ≠ G; (c) pass 2
-            (D factors (2, 1)), bf16: 4 steps, 6 warp launches per step,
-            finite metrics
+            3 forward and 1 backward warp launches per step, finite
+            metrics, EMA ≠ G; (c) pass 2 (D factors (2, 1)), bf16: 4
+            steps, 3 forward and 1 backward warp launches per step, finite
+            metrics
 
-Then one JSON line listing every kernel, the card's name and power limit
-(nvidia-smi), and last the line
+Then one JSON line listing every kernel (its launches on the path that
+runs it, its times at B=16 64², and under "large" at B=256 256²), the
+card's name and power limit (nvidia-smi), and last the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Runs on one card; exits non-zero without CUDA.
 """
@@ -65,7 +74,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "examples", "data")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-WARP_FLOPS_PER_PX = 27         # clamps, floors, weights and 4-tap blend
+
+# The warp kernels: where each replaces the TPU kernel (or, for the
+# backward, the custom_vjp backward of the TPU kernel's wrapper), and what
+# the work the train step asks of it moves and computes per pixel: bytes
+# (each input read once, each output written once; the backward as the
+# train step runs it, without the velocity gradient) and f32 operations
+# (clamps, floors, weights and the 4-tap blend or scatter, per field).
+WARP_KERNELS = {
+    "warp2d": ("mpgan_tpu/ops/warp_pallas.py:89", 16, 27),
+    "warp2d_bwd": ("mpgan_tpu/ops/warp_pallas.py:126", 16, 30),
+    "warp2d_triplet": ("mpgan_tpu/ops/warp_pallas.py:89", 32, 54),
+    "warp2d_triplet_bwd": ("mpgan_tpu/ops/warp_pallas.py:126", 24, 60),
+}
+WARP_SHAPES = ((16, 64, 64, 200), (256, 256, 256, 20))  # B, H, W, timed calls
 
 
 def phase(name):
@@ -95,10 +117,15 @@ def cuda_ms(fn, iters, warmup=3):
 
 
 def warp_inputs(b, h, w, vscale, seed, dev):
+    """prev, cur, nxt (B, H, W, 1), vel (B, H, W, 2) and a gradient of the
+    (B, H, W, 3) triplet with NCHW strides, as Dt's backward hands it
+    over."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    f = torch.rand((b, h, w, 1), generator=g, device=dev)
+    p, c, n = (torch.rand((b, h, w, 1), generator=g, device=dev)
+               for _ in range(3))
     v = torch.randn((b, h, w, 2), generator=g, device=dev) * vscale
-    return f, v
+    gy = torch.randn((b, 3, h, w), generator=g, device=dev).permute(0, 2, 3, 1)
+    return p, c, n, v, gy
 
 
 def grid_for(vel, dt, r):
@@ -112,57 +139,182 @@ def grid_for(vel, dt, r):
                        dim=-1)
 
 
-def phase_warp(dev, wk):
-    t0 = phase("2 warp kernel vs plain")
-    max_err = 0.0
-    for b, h, w in ((16, 64, 64), (256, 256, 256)):
-        for dt in (1.0, -1.0):
-            for vscale in (1.5, 12.0, 0.0):
-                f, v = warp_inputs(b, h, w, vscale, 1, dev)
-                got = wk.advect_2d_kernel(f, v, dt)
-                torch.cuda.synchronize()
-                want = wk.advect_2d_clamped_ref(f, v, dt)
-                err = float((got - want).abs().max())
-                assert err <= 1e-5, (b, h, w, dt, vscale, err)
-                if vscale == 0.0:
-                    assert float((got - f).abs().max()) <= 1e-6
-                max_err = max(max_err, err)
-    f, v = warp_inputs(16, 64, 64, 6.0, 2, dev)
-    tf, tv = f.clone().requires_grad_(), v.clone().requires_grad_()
-    g = torch.randn_like(f)
-    wk.advect_2d_fast(tf, tv, 1.0).backward(g)
-    rf, rv = f.clone().requires_grad_(), v.clone().requires_grad_()
-    wk.advect_2d_clamped_ref(rf, rv, 1.0).backward(g)
-    gerr = max(float((tf.grad - rf.grad).abs().max()),
-               float((tv.grad - rv.grad).abs().max()))
-    assert gerr <= 1e-4, gerr
+def gap(got, want):
+    """Max abs difference over pairs of tensors."""
+    return max(float((a - b).detach().abs().max())
+               for a, b in zip(got, want))
 
-    times = {}
-    for b, h, w, iters in ((16, 64, 64, 200), (256, 256, 256, 20)):
-        f, v = warp_inputs(b, h, w, 1.5, 3, dev)
-        grid = grid_for(v, 1.0, wk.DEFAULT_MAX_DISP)
-        f_nchw = f.permute(0, 3, 1, 2)
-        lib = F.grid_sample(f_nchw, grid, mode="bilinear",
-                            padding_mode="border", align_corners=True)
-        lib_err = float((lib.permute(0, 2, 3, 1)
-                         - wk.advect_2d_clamped_ref(f, v, 1.0)).abs().max())
-        px = b * h * w
-        t = {
+
+def warp_checks(wk, b, h, w, vscale, dev):
+    """Every warp kernel against its plain version on one input: the
+    forwards (1e-5), and the gradients of every input through the
+    autograd Functions and the field gradients as the train step asks for
+    them (1e-4). → max abs error per kernel."""
+    p, c, n, v, gy = warp_inputs(b, h, w, vscale, 1, dev)
+    g1 = gy[..., :1]
+    err = {}
+    for dt in (1.0, -1.0):
+        got = wk.advect_2d_kernel(p, v, dt)
+        torch.cuda.synchronize()
+        e = gap([got], [wk.advect_2d_clamped_ref(p, v, dt)])
+        assert e <= 1e-5, ("warp2d", b, h, w, dt, vscale, e)
+        if vscale == 0.0:
+            assert gap([got], [p]) <= 1e-6
+        err["warp2d"] = max(err.get("warp2d", 0.0), e)
+        ref_in = [t.clone().requires_grad_() for t in (p, v)]
+        ref = torch.autograd.grad(wk.advect_2d_clamped_ref(*ref_in, dt),
+                                  ref_in, g1)
+        k_in = [t.clone().requires_grad_() for t in (p, v)]
+        got = torch.autograd.grad(wk.advect_2d_fast(*k_in, dt), k_in, g1)
+        only_f, _ = wk.advect_2d_kernel_bwd(g1, p, v, dt)
+        torch.cuda.synchronize()
+        e = max(gap(got, ref), gap([only_f], ref[:1]))
+        assert e <= 1e-4, ("warp2d_bwd", b, h, w, dt, vscale, e)
+        err["warp2d_bwd"] = max(err.get("warp2d_bwd", 0.0), e)
+    got = wk.align_triplet_kernel(p, c, n, v)
+    torch.cuda.synchronize()
+    e = gap([got], [wk.align_triplet_ref(p, c, n, v)])
+    assert e <= 1e-5, ("warp2d_triplet", b, h, w, vscale, e)
+    err["warp2d_triplet"] = e
+    ref_in = [t.clone().requires_grad_() for t in (p, c, n, v)]
+    ref = torch.autograd.grad(wk.align_triplet_ref(*ref_in), ref_in, gy)
+    k_in = [t.clone().requires_grad_() for t in (p, c, n, v)]
+    got = torch.autograd.grad(wk.align_triplet_fast(*k_in), k_in, gy)
+    d_prev, d_nxt, _ = wk.align_triplet_kernel_bwd(gy, p, n, v)
+    torch.cuda.synchronize()
+    e = max(gap(got, ref), gap([d_prev, d_nxt], [ref[0], ref[2]]))
+    assert e <= 1e-4, ("warp2d_triplet_bwd", b, h, w, vscale, e)
+    err["warp2d_triplet_bwd"] = e
+    return err
+
+
+def warp_times(wk, b, h, w, iters, dev):
+    """Each warp kernel at one shape: its wrapper's time per call (CUDA
+    events over back-to-back calls), its plain version's (for a backward,
+    the autograd backward of the plain forward through a kept graph), one
+    PyTorch call computing the same function (grid_sample, and for a
+    backward grid_sampler_2d_backward of the input alone; also grid_sample
+    forward plus backward through autograd), and its bound."""
+    p, c, n, v, gy = warp_inputs(b, h, w, 1.5, 3, dev)
+    r = wk.DEFAULT_MAX_DISP
+    g1 = gy[..., :1]
+    grid_p, grid_n = grid_for(v, 1.0, r), grid_for(v, -1.0, r)
+    one = p.permute(0, 3, 1, 2)
+    two = torch.cat([p, n]).permute(0, 3, 1, 2)
+    grid2 = torch.cat([grid_p, grid_n])
+    g_one = g1.permute(0, 3, 1, 2).contiguous()
+    g_two = torch.cat([gy[..., 0:1], gy[..., 2:3]]).permute(0, 3, 1, 2)
+
+    def gs(x, grid):
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    def gs_bwd(go, x, grid):  # d input only: bilinear, border, corners
+        return torch.ops.aten.grid_sampler_2d_backward(
+            go, x, grid, 0, 1, True, [True, False])[0]
+
+    def gs_fwd_bwd(x, grid, go):
+        x = x.detach().requires_grad_()
+        return torch.autograd.grad(gs(x, grid), x, go)[0]
+
+    def plain_bwd(fn, inputs, go):
+        inputs = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*inputs)
+        return lambda: torch.autograd.grad(out, inputs, go, retain_graph=True)
+
+    ref1 = wk.advect_2d_clamped_ref(p, v, 1.0)
+    ref3 = wk.align_triplet_ref(p, c, n, v)
+    ref1_bwd = plain_bwd(lambda f: wk.advect_2d_clamped_ref(f, v, 1.0),
+                         [p], g1)()[0]
+    ref3_bwd = plain_bwd(lambda a, z: wk.align_triplet_ref(a, c, z, v),
+                         [p, n], gy)()
+    lib_err = {
+        "warp2d": gap([gs(one, grid_p).permute(0, 2, 3, 1)], [ref1]),
+        "warp2d_bwd": gap([gs_bwd(g_one, one, grid_p).permute(0, 2, 3, 1)],
+                          [ref1_bwd]),
+        "warp2d_triplet": gap(
+            gs(two, grid2).permute(0, 2, 3, 1).chunk(2),
+            [ref3[..., 0:1], ref3[..., 2:3]]),
+        "warp2d_triplet_bwd": gap(
+            gs_bwd(g_two, two, grid2).permute(0, 2, 3, 1).chunk(2),
+            ref3_bwd),
+    }
+    calls = {
+        "warp2d": (lambda: wk.advect_2d_kernel(p, v, 1.0),
+                   lambda: wk.advect_2d_clamped_ref(p, v, 1.0),
+                   lambda: gs(one, grid_p), None),
+        "warp2d_bwd": (lambda: wk.advect_2d_kernel_bwd(g1, p, v, 1.0),
+                       plain_bwd(lambda f: wk.advect_2d_clamped_ref(f, v, 1.0),
+                                 [p], g1),
+                       lambda: gs_bwd(g_one, one, grid_p),
+                       lambda: gs_fwd_bwd(one, grid_p, g_one)),
+        "warp2d_triplet": (lambda: wk.align_triplet_kernel(p, c, n, v),
+                           lambda: wk.align_triplet_ref(p, c, n, v),
+                           lambda: gs(two, grid2), None),
+        "warp2d_triplet_bwd": (
+            lambda: wk.align_triplet_kernel_bwd(gy, p, n, v),
+            plain_bwd(lambda a, m, z: wk.align_triplet_ref(a, m, z, v),
+                      [p, c, n], gy),
+            lambda: gs_bwd(g_two, two, grid2),
+            lambda: gs_fwd_bwd(two, grid2, g_two)),
+    }
+    px = b * h * w
+    out = {}
+    for name, (kern, plain, lib, lib_fb) in calls.items():
+        _, nbytes, flops = WARP_KERNELS[name]
+        out[name] = {
             "shape": [b, h, w],
-            "ms": cuda_ms(lambda: wk.advect_2d_kernel(f, v, 1.0), iters),
-            "plain_ms": cuda_ms(lambda: wk.advect_2d_clamped_ref(f, v, 1.0),
-                                iters),
-            "library_ms": cuda_ms(lambda: F.grid_sample(
-                f_nchw, grid, mode="bilinear", padding_mode="border",
-                align_corners=True), iters),
-            "bound_ms": max(px * 16 / HBM_BYTES_PER_S,
-                            px * WARP_FLOPS_PER_PX / F32_FLOPS) * 1e3,
-            "library_max_abs_err": lib_err,
+            "ms": cuda_ms(kern, iters),
+            "plain_ms": cuda_ms(plain, iters),
+            "library_ms": cuda_ms(lib, iters),
+            "bound_ms": max(px * nbytes / HBM_BYTES_PER_S,
+                            px * flops / F32_FLOPS) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / F32_FLOPS else "operations"),
+            "library_max_abs_err": lib_err[name],
         }
-        times[(b, h, w)] = t
-        print("   warp timing " + json.dumps(t), flush=True)
-    done(t0, max_abs_err=max_err, grad_max_abs_err=gerr)
-    return max_err, gerr, times
+        if lib_fb is not None:
+            out[name]["library_fwd_bwd_ms"] = cuda_ms(lib_fb, iters)
+    return out
+
+
+def phase_warp(dev, wk):
+    t0 = phase("2 warp kernels vs plain")
+    err = {k: 0.0 for k in WARP_KERNELS}
+    for b, h, w, _ in WARP_SHAPES:
+        for vscale in (1.5, 12.0, 0.0):
+            for k, e in warp_checks(wk, b, h, w, vscale, dev).items():
+                err[k] = max(err[k], e)
+    times = {}
+    for b, h, w, iters in WARP_SHAPES:
+        for name, t in warp_times(wk, b, h, w, iters, dev).items():
+            times.setdefault(name, []).append(t)
+            print(f"   {name} timing " + json.dumps(t), flush=True)
+    done(t0, **{f"{k}_max_abs_err": e for k, e in err.items()})
+    return err, times
+
+
+def phase_single_path(dev, wk):
+    """The single-field entry point a user calls, advect_2d_fast (the JAX
+    package's advect_2d_fast), forward and backward at the trainer's
+    shape: one launch of each kernel."""
+    t0 = phase("2b advect_2d_fast: single-field warp, forward and backward")
+    p, _, _, v, gy = warp_inputs(16, 64, 64, 1.5, 4, dev)
+    f = p.clone().requires_grad_()
+    wk.launches = wk.bwd_launches = 0                  # path starts
+    out = wk.advect_2d_fast(f, v, 1.0)
+    out.backward(gy[..., :1])
+    torch.cuda.synchronize()
+    counts = (wk.launches, wk.bwd_launches)            # path ends
+    assert counts == (1, 1), counts
+    r = f.detach().requires_grad_()
+    want = wk.advect_2d_clamped_ref(r, v, 1.0)
+    want.backward(gy[..., :1])
+    err = gap([out, f.grad], [want, r.grad])
+    assert err <= 1e-4, err
+    assert out.shape == (16, 64, 64, 1) and bool(torch.isfinite(out).all())
+    done(t0, launches=counts[0], bwd_launches=counts[1], max_abs_err=err)
+    return counts, err
 
 
 def load_chain(dtype, device):
@@ -280,7 +432,7 @@ def phase_align(dev, wk):
     from mpgan_torch.io import uni
     from mpgan_torch.train import loop, losses
 
-    t0 = phase("6 fake/real triplet alignment through the warp kernel")
+    t0 = phase("6 fake/real triplet alignment through the warp kernels")
     torch.backends.cudnn.allow_tf32 = False
     cfg, g1, _ = load_chain("float32", dev)
     sim = os.path.join(DATA, "sim_3020")
@@ -295,28 +447,26 @@ def phase_align(dev, wk):
     use_kernel = losses.use_warp_kernel(cfg.loss.warp_backend, dev)
     assert use_kernel
     md = cfg.loss.warp_max_disp
-    wk.launches = 0                                    # path starts
+    wk.launches = wk.bwd_launches = 0                  # path starts
     with torch.no_grad():
         fakes = loop.aligned_fakes(g1, batch, 1, 2, 4, use_kernel, md)
         reals = loop.aligned_reals(batch, 1, 2, 4, use_kernel, md)
     torch.cuda.synchronize()
-    launches = wk.launches                             # path ends
-    assert launches == 4, launches
+    launches = (wk.launches, wk.bwd_launches)          # path ends
+    assert launches == (2, 0), launches
     vel = loop.vel_hr(batch, 1, 2, 4)
     with torch.no_grad():
-        f_prev, _, f_next = loop.fake_triplet(g1, batch, 1, 2)
-        plain = [wk.advect_2d_clamped_ref(f_prev, vel, 1.0, md),
-                 wk.advect_2d_clamped_ref(f_next, vel, -1.0, md),
-                 wk.advect_2d_clamped_ref(batch["hr_prev"], vel, 1.0, md),
-                 wk.advect_2d_clamped_ref(batch["hr_next"], vel, -1.0, md)]
-    got = [fakes[..., 0:1], fakes[..., 2:3], reals[..., 0:1], reals[..., 2:3]]
-    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+        fake_in = loop.fake_triplet(g1, batch, 1, 2)
+        plain = [wk.align_triplet_ref(*fake_in, vel, md),
+                 wk.align_triplet_ref(batch["hr_prev"], batch["hr"],
+                                      batch["hr_next"], vel, md)]
+    err = gap([fakes, reals], plain)
     assert err <= 1e-5, err
     assert fakes.shape == reals.shape == (16, 64, 64, 3)
     clamped = float((vel.abs() > md).float().mean())
-    done(t0, launches=launches, max_abs_err=err,
+    done(t0, launches=launches[0], max_abs_err=err,
          vel_hr_max=float(vel.abs().max()), share_beyond_clamp=clamped)
-    return launches, err
+    return launches[0], err
 
 
 TRAIN_METRICS = ("d_loss", "dt_loss", "g_loss", "g_adv", "l1", "feat", "g_t",
@@ -427,16 +577,17 @@ def phase_train(dev, wk):
     torch.cuda.reset_peak_memory_stats()
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(windows + 1)]
-    wk.launches = 0                                    # path starts
+    wk.launches = wk.bwd_launches = 0                  # path starts
     events[0].record()
     for w in range(windows):
         out = tr.fit(3 + (w + 1) * n, start_it=3 + w * n, log_every=n)
         events[w + 1].record()
     torch.cuda.synchronize()
-    launches = wk.launches                             # path ends
+    launches, bwd_launches = wk.launches, wk.bwd_launches  # path ends
     ms = [events[w].elapsed_time(events[w + 1]) / n for w in range(windows)]
     steps = n * windows
-    assert launches == 6 * steps, launches
+    assert (launches, bwd_launches) == (3 * steps, steps), (launches,
+                                                            bwd_launches)
     assert all(np.isfinite(out[k]) for k in TRAIN_METRICS), out
     rt = tr.rt
     ema_gap = max(float((rt.ema[k] - p.detach()).abs().max())
@@ -447,8 +598,9 @@ def phase_train(dev, wk):
     res = {"ms_per_step": med, "ms_per_step_windows": ms,
            "steps_per_s": 1e3 / med, "samples_per_s": 16e3 / med,
            "steps": steps, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "warp_launches": launches,
+           "warp_launches": launches, "warp_bwd_launches": bwd_launches,
            "warp_launches_per_step": launches / steps,
+           "warp_bwd_launches_per_step": bwd_launches / steps,
            "ema_max_abs_gap": ema_gap, "f32_parity": parity,
            "assembly_max_abs_err": assembly_err,
            "metrics": {k: out[k] for k in TRAIN_METRICS}}
@@ -456,13 +608,14 @@ def phase_train(dev, wk):
     # (c) pass 2 (4x along x, D factors (2, 1)), bf16: 4 steps through
     # Trainer.fit, the first with R1
     tr2 = loop.Trainer(cfg, tc, device=dev, pass_no=2)
-    wk.launches = 0                                    # path starts
+    wk.launches = wk.bwd_launches = 0                  # path starts
     out2 = tr2.fit(4, log_every=4)
     torch.cuda.synchronize()
-    launches2 = wk.launches                            # path ends
-    assert launches2 == 6 * 4, launches2
+    launches2 = (wk.launches, wk.bwd_launches)         # path ends
+    assert launches2 == (3 * 4, 4), launches2
     assert all(np.isfinite(out2[k]) for k in TRAIN_METRICS), out2
-    res["pass2"] = {"steps": 4, "warp_launches": launches2,
+    res["pass2"] = {"steps": 4, "warp_launches": launches2[0],
+                    "warp_bwd_launches": launches2[1],
                     "metrics": {k: out2[k] for k in TRAIN_METRICS}}
     print("   train " + json.dumps(res), flush=True)
     done(t0)
@@ -487,29 +640,43 @@ def main():
     build_s = time.perf_counter() - t0
     done(t0, libs=",".join(sorted(paths)))
 
-    max_err, grad_err, times = phase_warp(dev, wk)
+    warp_err, times = phase_warp(dev, wk)
+    single_launches, single_err = phase_single_path(dev, wk)
     bundled_lr, quality = phase_bundled(dev)
     bench = phase_bench(dev)
     phase_serve(dev, bundled_lr)
     align_launches, align_err = phase_align(dev, wk)
     train = phase_train(dev, wk)
 
-    small, large = times[(16, 64, 64)], times[(256, 256, 256)]
-    kernels = [{
-        "name": "warp2d", "route": "cuda",
-        "source": "mpgan_torch/csrc/warp.cu",
-        "replaces": "mpgan_tpu/ops/warp_pallas.py:89",
-        "launches": train["warp_launches"],
-        "launches_per_train_step": train["warp_launches_per_step"],
-        "launches_align": align_launches,
-        "launches_pass2": train["pass2"]["warp_launches"],
-        "max_abs_err": max(max_err, align_err),
-        "ms": small["ms"], "plain_ms": small["plain_ms"],
-        "bound_ms": small["bound_ms"], "bound_by": "bytes",
-        "library_ms": small["library_ms"],
-        "shape": small["shape"], "grad_max_abs_err": grad_err,
-        "large": large, "build_s": build_s,
-    }]
+    # launches: each kernel's count on the path that runs it, the train
+    # step (7b) for the triplet kernels, advect_2d_fast (2b) for the
+    # single-field ones
+    paths = {
+        "warp2d": ("2b advect_2d_fast", single_launches[0], single_err),
+        "warp2d_bwd": ("2b advect_2d_fast", single_launches[1], single_err),
+        "warp2d_triplet": ("7b train step", train["warp_launches"],
+                           align_err),
+        "warp2d_triplet_bwd": ("7b train step", train["warp_bwd_launches"],
+                               0.0),
+    }
+    kernels = []
+    for name, (replaces, _, _) in WARP_KERNELS.items():
+        path, launches, path_err = paths[name]
+        small, large = times[name]
+        entry = {"name": name, "route": "cuda",
+                 "source": "mpgan_torch/csrc/warp.cu", "replaces": replaces,
+                 "launches": launches, "path": path,
+                 "max_abs_err": max(warp_err[name], path_err)}
+        entry.update(small)
+        entry["large"] = large
+        kernels.append(entry)
+    kernels[0]["build_s"] = build_s
+    kernels[2].update(launches_per_train_step=train["warp_launches_per_step"],
+                      launches_align=align_launches,
+                      launches_pass2=train["pass2"]["warp_launches"])
+    kernels[3].update(
+        launches_per_train_step=train["warp_bwd_launches_per_step"],
+        launches_pass2=train["pass2"]["warp_bwd_launches"])
     print(json.dumps({"kernels": kernels, "main_path": bench,
                       "bundled": quality, "train": train}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -28,8 +28,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes signatures of each library's entry points:
 # name -> {function: (restype, [argtypes])}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
-    "warp": {"mpgan_warp2d": (_I, [_P, _P, _P, _I, _I, _I, _F, _I, _P])},
+    "warp": {
+        "mpgan_warp2d": (_I, [_P, _P, _P, _I, _I, _I, _F, _F, _P]),
+        "mpgan_warp2d_triplet": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                      _P]),
+        "mpgan_warp2d_bwd": (_I, [_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I,
+                                  _F, _F, _P]),
+        "mpgan_warp2d_triplet_bwd": (_I, [_P, _L, _L, _L, _L, _P, _P, _P, _P,
+                                          _P, _P, _I, _I, _I, _F, _P]),
+    },
 }
 
 _lock = threading.Lock()

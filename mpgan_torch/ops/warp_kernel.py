@@ -1,30 +1,58 @@
-"""The semi-Lagrangian warp as a CUDA kernel, with its plain version and a
-differentiable wrapper.
+"""The semi-Lagrangian warp as CUDA kernels, with their plain versions and
+differentiable wrappers.
 
-Counterpart of ``mpgan_tpu/ops/warp_pallas.py``: the TPU kernel
-``advect_2d_pallas`` is replaced by ``csrc/warp.cu`` (see the note at its
-top for the bound and the design), launched by :func:`advect_2d_kernel`.
-:func:`advect_2d_clamped_ref` is the plain PyTorch version of the same
-function (the JAX package's ``_clamped_xla_reference``), and
-:class:`AdvectFast` / :func:`advect_2d_fast` is the differentiable warp the
-temporal loss uses: kernel forward for CUDA tensors, plain forward for CPU
-tensors, and in both cases a backward through autograd of the plain clamped
-version — as the JAX ``custom_vjp`` does; the TPU kernel had no backward
-kernel either.
+Counterpart of ``mpgan_tpu/ops/warp_pallas.py``; ``csrc/warp.cu`` holds the
+kernels (see the note at its top for the bounds and the design):
+
+- :func:`advect_2d_kernel` launches the single-field warp, the counterpart
+  of the TPU kernel ``advect_2d_pallas``;
+- :func:`align_triplet_kernel` launches the fused alignment of a triplet,
+  ``[warp(prev, +1), cur, warp(nxt, −1)]`` in one launch, which is what
+  ``align_triplet(use_pallas=True)`` computes with two kernel calls and a
+  concatenation;
+- :func:`advect_2d_kernel_bwd` and :func:`align_triplet_kernel_bwd` launch
+  the backward kernel (the VJP of the JAX ``custom_vjp``), for one field or
+  for both fields of a triplet.
+
+:func:`advect_2d_clamped_ref` is the plain PyTorch version of the warp (the
+JAX package's ``_clamped_xla_reference``); its autograd is the plain
+version of the backward. :func:`advect_2d_fast` and
+:func:`align_triplet_fast` are the differentiable entry points: kernels
+both ways for CUDA tensors (:class:`AdvectFast`, :class:`AlignTripletFast`),
+the plain version and its autograd for CPU tensors. There is no fallback:
+on CUDA tensors a failed build or launch raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mpgan_torch import _build
 from mpgan_torch.ops.warp import advect_2d
 
 # Cells; per-frame backtrace bound, shared with LossConfig.warp_max_disp.
 DEFAULT_MAX_DISP = 8
 
-# kernel launches since the last reset (incremented only where the kernel
-# is launched; chip_smoke.py resets it before driving the main path)
+# Kernel launches since the last reset, incremented only where a kernel is
+# launched: forward kernels (single-field and triplet) and backward
+# kernels. chip_smoke.py resets them before driving each path.
 launches = 0
+bwd_launches = 0
+
+_lib = None
+
+
+def _kernels():
+    """The warp library, built and loaded at first use."""
+    global _lib
+    if _lib is None:
+        _lib = _build.load("warp")
+    return _lib
+
+
+def _clamp_limit(dt: float, max_disp: int) -> float:
+    """The velocity clamp ±max_disp/|dt| of the plain version."""
+    return max_disp / max(abs(dt), 1e-9)
 
 
 def advect_2d_clamped_ref(field: torch.Tensor, vel: torch.Tensor,
@@ -32,78 +60,219 @@ def advect_2d_clamped_ref(field: torch.Tensor, vel: torch.Tensor,
                           max_disp: int = DEFAULT_MAX_DISP) -> torch.Tensor:
     """Plain warp with the kernel's displacement clamp: velocity clipped to
     ±max_disp/|dt|, then :func:`mpgan_torch.ops.warp.advect_2d`."""
-    lim = max_disp / max(abs(dt), 1e-9)
+    lim = _clamp_limit(dt, max_disp)
     return advect_2d(field, vel.clamp(-lim, lim), dt)
+
+
+def align_triplet_ref(prev: torch.Tensor, cur: torch.Tensor,
+                      nxt: torch.Tensor, vel: torch.Tensor,
+                      max_disp: int = DEFAULT_MAX_DISP) -> torch.Tensor:
+    """Plain version of :func:`align_triplet_kernel`: the clamped warp of
+    prev (dt = +1) and nxt (dt = −1), stacked around cur → (B, H, W, 3)."""
+    f32 = torch.float32
+    return torch.cat([advect_2d_clamped_ref(prev.to(f32), vel, 1.0, max_disp),
+                      cur.to(f32),
+                      advect_2d_clamped_ref(nxt.to(f32), vel, -1.0, max_disp)],
+                     dim=-1)
+
+
+def _check(name: str, vel: torch.Tensor, **fields) -> tuple[int, int, int]:
+    """(B, H, W) of ``vel`` (B, H, W, 2); raises unless ``vel`` and every
+    field (B, H, W, 1) are contiguous float32 tensors on one CUDA device."""
+    dev = vel.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got vel on {dev}")
+    if vel.dim() != 4 or vel.shape[-1] != 2:
+        raise ValueError(f"vel must be (B, H, W, 2), got {tuple(vel.shape)}")
+    b, h, w, _ = vel.shape
+    for k, t in dict(fields, vel=vel).items():
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name} needs float32 tensors on {dev}, got "
+                             f"{k} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+        if k != "vel" and t.shape != (b, h, w, 1):
+            raise ValueError(f"{k} must be {(b, h, w, 1)}, got "
+                             f"{tuple(t.shape)}")
+    if 3 * b * h * w >= 2 ** 31 or b > 65535:
+        raise ValueError(f"{b}x{h}x{w} pixels exceed the kernel's indices")
+    if vel.data_ptr() % 8:
+        raise ValueError("vel must be 8-byte aligned (read as float2)")
+    return b, h, w
+
+
+def _check_grad(g: torch.Tensor, shape: tuple, dev: torch.device) -> None:
+    if g.device != dev or g.dtype != torch.float32 or g.shape != shape:
+        raise ValueError(f"the gradient must be float32 {shape} on {dev}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+
+
+def _launch(fn, dev: torch.device, *args) -> None:
+    """Call the C entry ``fn`` with ``args`` and the current stream of
+    ``dev``, making ``dev`` current only if it is not; raise on a CUDA
+    error."""
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
 
 
 def advect_2d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
                      max_disp: int = DEFAULT_MAX_DISP) -> torch.Tensor:
-    """Launch the CUDA warp: field (B, H, W, 1), vel (B, H, W, 2) float32 as
-    (v_w, v_h) → (B, H, W, 1) float32. The field is cast to float32 first.
-    Raises on anything the kernel does not take."""
+    """Launch the CUDA warp: field (B, H, W, 1), vel (B, H, W, 2) as
+    (v_w, v_h), contiguous float32 on one CUDA device → (B, H, W, 1)
+    float32. Raises on anything the kernel does not take."""
     global launches
-    if field.device.type != "cuda" or vel.device != field.device:
-        raise ValueError(f"advect_2d_kernel needs both tensors on one CUDA "
-                         f"device, got {field.device} and {vel.device}")
-    if field.dim() != 4 or field.shape[-1] != 1:
-        raise ValueError(f"field must be (B, H, W, 1), got {tuple(field.shape)}")
-    b, h, w, _ = field.shape
-    if tuple(vel.shape) != (b, h, w, 2):
-        raise ValueError(f"vel must be {(b, h, w, 2)}, got {tuple(vel.shape)}")
-    if vel.dtype != torch.float32 or not field.is_floating_point():
-        raise ValueError(f"need a float field and a float32 velocity, got "
-                         f"{field.dtype} and {vel.dtype}")
-    if not (field.is_contiguous() and vel.is_contiguous()):
-        raise ValueError("field and vel must be contiguous")
-    if b * h * w >= 2 ** 31:
-        raise ValueError(f"{b}x{h}x{w} pixels exceed the kernel's int index")
-    if vel.data_ptr() % 8:
-        raise ValueError("vel must be 8-byte aligned (read as float2)")
-    f = field.to(torch.float32)
-    out = torch.empty((b, h, w, 1), dtype=torch.float32, device=field.device)
-    from mpgan_torch import _build
-    lib = _build.load("warp")
-    with torch.cuda.device(field.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mpgan_warp2d(f.data_ptr(), vel.data_ptr(), out.data_ptr(),
-                               b, h, w, float(dt), int(max_disp), stream)
-    if err != 0:
-        raise RuntimeError(f"warp kernel launch failed: CUDA error {err}")
+    b, h, w = _check("advect_2d_kernel", vel, field=field)
+    out = torch.empty((b, h, w, 1), dtype=torch.float32, device=vel.device)
+    _launch(_kernels().mpgan_warp2d, vel.device, field.data_ptr(),
+            vel.data_ptr(), out.data_ptr(), b, h, w, float(dt),
+            _clamp_limit(dt, max_disp))
     launches += 1
     return out
 
 
+def advect_2d_kernel_bwd(g: torch.Tensor, field: torch.Tensor,
+                         vel: torch.Tensor, dt: float = 1.0,
+                         max_disp: int = DEFAULT_MAX_DISP,
+                         field_grad: bool = True, vel_grad: bool = False):
+    """Launch the backward kernel of :func:`advect_2d_kernel` for the
+    gradient ``g`` (B, H, W, 1) float32 of any strides → (d_field, d_vel),
+    each None unless asked for."""
+    global bwd_launches
+    b, h, w = _check("advect_2d_kernel_bwd", vel, field=field)
+    dev = vel.device
+    _check_grad(g, (b, h, w, 1), dev)
+    if not (field_grad or vel_grad):
+        return None, None
+    d_field = (torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
+               if field_grad else None)
+    d_vel = (torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
+             if vel_grad else None)
+    sb, sy, sx, _ = g.stride()
+    _launch(_kernels().mpgan_warp2d_bwd, dev, g.data_ptr(), sb, sy, sx,
+            field.data_ptr(), vel.data_ptr(),
+            d_field.data_ptr() if field_grad else None,
+            d_vel.data_ptr() if vel_grad else None, b, h, w, float(dt),
+            _clamp_limit(dt, max_disp))
+    bwd_launches += 1
+    return d_field, d_vel
+
+
+def align_triplet_kernel(prev: torch.Tensor, cur: torch.Tensor,
+                         nxt: torch.Tensor, vel: torch.Tensor,
+                         max_disp: int = DEFAULT_MAX_DISP) -> torch.Tensor:
+    """Launch the fused triplet warp: prev, cur, nxt (B, H, W, 1) and vel
+    (B, H, W, 2) as (v_w, v_h), contiguous float32 on one CUDA device →
+    (B, H, W, 3) float32 ``[warp(prev, +1), cur, warp(nxt, −1)]``, the
+    displacement clamped to ±max_disp. Raises on anything the kernel does
+    not take."""
+    global launches
+    b, h, w = _check("align_triplet_kernel", vel, prev=prev, cur=cur,
+                     nxt=nxt)
+    out = torch.empty((b, h, w, 3), dtype=torch.float32, device=vel.device)
+    _launch(_kernels().mpgan_warp2d_triplet, vel.device, prev.data_ptr(),
+            cur.data_ptr(), nxt.data_ptr(), vel.data_ptr(), out.data_ptr(),
+            b, h, w, float(max_disp))
+    launches += 1
+    return out
+
+
+def align_triplet_kernel_bwd(g: torch.Tensor, prev: torch.Tensor,
+                             nxt: torch.Tensor, vel: torch.Tensor,
+                             max_disp: int = DEFAULT_MAX_DISP,
+                             field_grads: bool = True,
+                             vel_grad: bool = False):
+    """Launch the backward kernel of :func:`align_triplet_kernel` for the
+    gradient ``g`` (B, H, W, 3) float32 of any strides → (d_prev, d_nxt,
+    d_vel), None where not asked for (d_prev and d_nxt together). The
+    gradient of cur is ``g[..., 1:2]`` and needs no launch."""
+    global bwd_launches
+    b, h, w = _check("align_triplet_kernel_bwd", vel, prev=prev, nxt=nxt)
+    dev = vel.device
+    _check_grad(g, (b, h, w, 3), dev)
+    d_prev = d_nxt = d_vel = None
+    if not (field_grads or vel_grad):
+        return d_prev, d_nxt, d_vel
+    if field_grads:  # both planes in one allocation
+        d_prev, d_nxt = torch.empty((2, b, h, w, 1), dtype=torch.float32,
+                                    device=dev)
+    if vel_grad:
+        d_vel = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
+    sb, sy, sx, sc = g.stride()
+    _launch(_kernels().mpgan_warp2d_triplet_bwd, dev, g.data_ptr(), sb, sy,
+            sx, sc, prev.data_ptr(), nxt.data_ptr(), vel.data_ptr(),
+            d_prev.data_ptr() if field_grads else None,
+            d_nxt.data_ptr() if field_grads else None,
+            d_vel.data_ptr() if vel_grad else None, b, h, w, float(max_disp))
+    bwd_launches += 1
+    return d_prev, d_nxt, d_vel
+
+
 class AdvectFast(torch.autograd.Function):
-    """Kernel forward (CUDA tensors) or plain forward (CPU tensors);
-    backward through autograd of :func:`advect_2d_clamped_ref`."""
+    """The single-field warp on CUDA tensors: the forward kernel, and the
+    backward kernel for the gradient."""
 
     @staticmethod
     def forward(ctx, field, vel, dt, max_disp):
+        field, vel = field.to(torch.float32).contiguous(), vel.contiguous()
         ctx.save_for_backward(field, vel)
         ctx.dt, ctx.max_disp = dt, max_disp
-        if field.device.type == "cpu":
-            return advect_2d_clamped_ref(field.to(torch.float32), vel,
-                                         dt, max_disp)
-        return advect_2d_kernel(field.contiguous(), vel.contiguous(),
-                                dt, max_disp)
+        return advect_2d_kernel(field, vel, dt, max_disp)
 
     @staticmethod
     def backward(ctx, g):
         field, vel = ctx.saved_tensors
-        with torch.enable_grad():
-            f = field.detach().requires_grad_(ctx.needs_input_grad[0])
-            v = vel.detach().requires_grad_(ctx.needs_input_grad[1])
-            out = advect_2d_clamped_ref(f.to(torch.float32), v, ctx.dt,
-                                        ctx.max_disp)
-            inputs = [t for t in (f, v) if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, inputs, g) if inputs else ())
-        gf = next(grads) if ctx.needs_input_grad[0] else None
-        gv = next(grads) if ctx.needs_input_grad[1] else None
+        need_f, need_v = ctx.needs_input_grad[:2]
+        gf, gv = advect_2d_kernel_bwd(g, field, vel, ctx.dt, ctx.max_disp,
+                                      need_f, need_v)
         return gf, gv, None, None
 
 
 def advect_2d_fast(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
                    max_disp: int = DEFAULT_MAX_DISP) -> torch.Tensor:
     """Differentiable clamped warp (B, H, W, 1) × (B, H, W, 2) → (B, H, W, 1)
-    float32: the kernel for CUDA tensors, the plain version for CPU ones."""
+    float32: the kernels for CUDA tensors, the plain version and its
+    autograd for CPU ones."""
+    if field.device.type == "cpu":
+        return advect_2d_clamped_ref(field.to(torch.float32), vel, dt,
+                                     max_disp)
     return AdvectFast.apply(field, vel, float(dt), int(max_disp))
+
+
+class AlignTripletFast(torch.autograd.Function):
+    """The triplet alignment on CUDA tensors: the fused forward kernel, and
+    the backward kernel for the gradients of prev, nxt and vel (cur's is a
+    view of the incoming gradient)."""
+
+    @staticmethod
+    def forward(ctx, prev, cur, nxt, vel, max_disp):
+        prev, cur, nxt, vel = (t.contiguous() for t in (prev, cur, nxt, vel))
+        ctx.save_for_backward(prev, nxt, vel)
+        ctx.max_disp = max_disp
+        return align_triplet_kernel(prev, cur, nxt, vel, max_disp)
+
+    @staticmethod
+    def backward(ctx, g):
+        prev, nxt, vel = ctx.saved_tensors
+        need_p, need_c, need_n, need_v = ctx.needs_input_grad[:4]
+        d_prev, d_nxt, d_vel = align_triplet_kernel_bwd(
+            g, prev, nxt, vel, ctx.max_disp, need_p or need_n, need_v)
+        return (d_prev if need_p else None,
+                g[..., 1:2] if need_c else None,
+                d_nxt if need_n else None, d_vel, None)
+
+
+def align_triplet_fast(prev: torch.Tensor, cur: torch.Tensor,
+                       nxt: torch.Tensor, vel: torch.Tensor,
+                       max_disp: int = DEFAULT_MAX_DISP) -> torch.Tensor:
+    """Differentiable ``[warp(prev, +1), cur, warp(nxt, −1)]`` →
+    (B, H, W, 3) float32, displacement clamped to ±max_disp: one forward
+    and one backward kernel for CUDA tensors, the plain version
+    (:func:`align_triplet_ref`) and its autograd for CPU ones."""
+    if vel.device.type == "cpu":
+        return align_triplet_ref(prev, cur, nxt, vel, max_disp)
+    return AlignTripletFast.apply(prev, cur, nxt, vel, int(max_disp))

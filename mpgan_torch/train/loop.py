@@ -13,9 +13,10 @@ Where eager PyTorch differs from the JAX package's one jitted program:
   fake under ``no_grad``, the conditioned inputs and the fake and real
   triplets; then the Ds and Dt losses take two backward passes. The
   generator's prev/cur/next inputs go through G as one batch. With
-  ``discRuns = genRuns = 1`` and temporal D on, the warp runs 6 times per
-  step (4 in the D-run, 2 in the G-run), and the step checks this through
-  the kernel's launch counter;
+  ``discRuns = genRuns = 1`` and temporal D on, the warp kernels launch
+  3 times forward per step (the fake and real triplets of the D-run, the
+  fake triplet of the G-run, one fused launch each) and once backward (the
+  G-run), and the step checks this through the kernels' launch counters;
 - lazy R1 is a Python branch on the host-side step counter;
 - metrics stay device tensors; the trainer reads them only at log points;
 - a parameter that no loss reaches gets a zero gradient, so that Adam
@@ -213,10 +214,12 @@ class TrainStep:
         d_runs = 0 if self.pure_l1 else max(cfg.train.disc_runs, 1)
         self.d_runs = d_runs
         self.g_runs = max(cfg.train.gen_runs, 1)
-        # warp launches per step: 2 per triplet, real + fake per D-run,
-        # fake per G-run (counted only where the CUDA kernel runs)
-        self.warps_per_step = (0 if self.pure_l1 or not self.temporal
-                               else 4 * d_runs + 2 * self.g_runs)
+        # warp kernel launches per step (counted only where the CUDA kernels
+        # run): forward, one per triplet, real + fake per D-run and fake per
+        # G-run; backward, one per G-run
+        warped = self.temporal and not self.pure_l1
+        self.warps_per_step = 2 * d_runs + self.g_runs if warped else 0
+        self.warp_bwds_per_step = self.g_runs if warped else 0
         self.count_launches = (self.use_kernel
                                and self.device.type == "cuda")
 
@@ -336,7 +339,7 @@ class TrainStep:
 
     def __call__(self, alpha: float, rng: torch.Generator) -> dict:
         rt = self.rt
-        n0 = warp_kernel.launches
+        n0, nb0 = warp_kernel.launches, warp_kernel.bwd_launches
         loss_ds, loss_dt = 0.0, 0.0
         for _ in range(self.d_runs):
             loss_ds, loss_dt = self._d_run(rng, alpha)
@@ -350,11 +353,13 @@ class TrainStep:
                 torch._foreach_add_(self.ema, self.g_params,
                                     alpha=1.0 - decay)
         rt.step += 1
-        if self.count_launches and \
-                warp_kernel.launches - n0 != self.warps_per_step:
-            raise RuntimeError(
-                f"warp kernel launched {warp_kernel.launches - n0} times in "
-                f"a step, expected {self.warps_per_step}")
+        if self.count_launches:
+            got = (warp_kernel.launches - n0, warp_kernel.bwd_launches - nb0)
+            want = (self.warps_per_step, self.warp_bwds_per_step)
+            if got != want:
+                raise RuntimeError(
+                    f"warp kernels launched (forward, backward) {got} times "
+                    f"in a step, expected {want}")
         return dict(d_loss=loss_ds, dt_loss=loss_dt, g_loss=loss_g, **aux)
 
 

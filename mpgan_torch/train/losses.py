@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from mpgan_torch.ops.warp import advect_2d
-from mpgan_torch.ops.warp_kernel import advect_2d_fast
+from mpgan_torch.ops.warp_kernel import align_triplet_fast
 
 
 def bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
@@ -122,14 +122,13 @@ def align_triplet(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
     prev/cur/nxt: (B, H, W, 1) densities; vel_hr: (B, H, W, 2) in HR pixel
     units, channels (v_w, v_h). Returns (B, H, W, 3).
 
-    ``use_kernel``: the clamped fast warp (:func:`advect_2d_fast`: the CUDA
-    kernel for CUDA tensors), displacement clamped to ±max_disp px.
+    ``use_kernel``: the clamped fast warp (:func:`align_triplet_fast`: for
+    CUDA tensors one fused kernel launch forward and one backward),
+    displacement clamped to ±max_disp px.
     """
     if use_kernel:
-        warped_prev = advect_2d_fast(prev, vel_hr, 1.0, max_disp)
-        warped_next = advect_2d_fast(nxt, vel_hr, -1.0, max_disp)
-    else:
-        warped_prev = advect_2d(prev, vel_hr, 1.0)
-        warped_next = advect_2d(nxt, vel_hr, -1.0)
+        return align_triplet_fast(prev, cur, nxt, vel_hr, max_disp)
+    warped_prev = advect_2d(prev, vel_hr, 1.0)
+    warped_next = advect_2d(nxt, vel_hr, -1.0)
     return torch.cat([warped_prev, cur.to(warped_prev.dtype), warped_next],
                      dim=-1)

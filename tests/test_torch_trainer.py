@@ -82,28 +82,33 @@ def test_stage_migration_is_strict_and_reinitialises_out():
         growing.migrate_params(new.gen.state_dict(), old.gen.state_dict())
 
 
-@pytest.mark.parametrize("backend,fn", [("auto", "advect_2d"),
-                                        ("pallas", "advect_2d_fast")])
-def test_six_warps_per_step(monkeypatch, backend, fn):
-    """4 in the D-run (fake and real triplets), 2 in the G-run — on the
-    plain path (auto on the CPU) and the clamped one; the CUDA kernel's
-    counter stays at 0 on the CPU."""
+@pytest.mark.parametrize("backend,fn,per_call",
+                         [("auto", "advect_2d", 1),
+                          ("pallas", "align_triplet_fast", 2)])
+def test_six_warps_per_step(monkeypatch, backend, fn, per_call):
+    """6 fields warped per step: 4 in the D-run (fake and real triplets), 2
+    in the G-run — one per call on the plain path (auto on the CPU), two per
+    call on the clamped one, which warps a triplet's both neighbours in one
+    call (one kernel launch on a card: 3 forward launches per step, and 1
+    backward for the G-run). The CUDA kernels' counters stay at 0 on the
+    CPU."""
     calls = [0]
     orig = getattr(tlosses, fn)
 
     def counted(*a, **k):
-        calls[0] += 1
+        calls[0] += per_call
         return orig(*a, **k)
 
     monkeypatch.setattr(tlosses, fn, counted)
     cfg = _config()
     cfg.loss.warp_backend = backend
     tr = tloop.Trainer(cfg, _tc(), device="cpu")
-    n0 = warp_kernel.launches
+    n0 = (warp_kernel.launches, warp_kernel.bwd_launches)
     tr.fit(3, log_every=3)
     assert calls[0] == 18
-    assert warp_kernel.launches == n0
-    assert tr.rt.step_stable.warps_per_step == 6
+    assert (warp_kernel.launches, warp_kernel.bwd_launches) == n0
+    step = tr.rt.step_stable
+    assert (step.warps_per_step, step.warp_bwds_per_step) == (3, 1)
 
 
 def test_temporal_d_needs_velocities():
@@ -152,12 +157,16 @@ def test_fake_triplet_equals_separate_generator_calls():
 
 @pytest.mark.cuda
 def test_cuda_step_launches_the_warp_kernel_six_times():
+    """Two steps on a card: 3 forward launches per step (one per triplet)
+    and 1 backward (the G-run) — the six warps of a step in three fused
+    launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     ds = recipe.synthetic_dataset(size=8, up=4, seed=2)
     tc = tpipeline.TileCreator(ds, 4, density_threshold=0.0, device="cuda")
     tr = tloop.Trainer(_config(), tc, device="cuda")
-    n0 = warp_kernel.launches
+    n0, nb0 = warp_kernel.launches, warp_kernel.bwd_launches
     out = tr.fit(2, log_every=2)
-    assert warp_kernel.launches - n0 == 12
+    assert warp_kernel.launches - n0 == 6
+    assert warp_kernel.bwd_launches - nb0 == 2
     assert np.isfinite(out["g_loss"]) and np.isfinite(out["dt_loss"])
