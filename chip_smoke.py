@@ -50,6 +50,28 @@ exit, and no result line:
             metrics, EMA ≠ G; (c) pass 2 (D factors (2, 1)), bf16: 4
             steps, 3 forward and 1 backward warp launches per step, finite
             metrics
+8. cli      the reference-style CLI, mpgan_torch.cli.main, in process on a
+            temporary directory: (a) a smooth synthetic .uni dataset of 2
+            sims × 4 frames, 32³ LR (density + velocity) → 128³ HR, and the
+            bundled 4x L1 pair copied in as the gen-only runs test_0000
+            (G1) and test_0001 (G2); (b) pass 1 through `out 0` at the
+            flagship recipe (bf16), 8 iterations with saveInterval 4
+            (model_0001, final model_0002), then `resumeIndex` on it takes
+            the budget-complete fast path; the checkpoint restores on the
+            CPU bit for bit and a CPU save restores on the card (host
+            time of one save and one restore reported); the recipe in
+            float32 (TF32 off, lrgan = adamEps = 1, lrdisc 1e-2), 4
+            iterations with saveInterval 2, and two resumes of its
+            model_0001 to iteration 4 agree to atol 1e-4; (c) pass 3
+            through `out 0` (trainPass 3 pass3Source model: precompute_finals
+            over the 8 volumes with the bundled chain), 4 iterations with
+            3 forward and 1 backward warp launch each (counts reset just
+            before, read just after), finite metrics; then its checkpoint
+            restored into a Trainer and 2 windows of 16 steps timed
+            between CUDA events (reported, not held to anything); (d)
+            `out 1` with 3 passes on two frames: 128³ volumes equal to a
+            direct upscale_volume of the same chain; that chain's frame
+            timed with and without pass 3 (10 frames, CUDA events)
 
 Then one JSON line listing every kernel (its launches on the path that
 runs it, its times at B=16 64², and under "large" at B=256 256²), the
@@ -60,6 +82,7 @@ Runs on one card; exits non-zero without CUDA.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -622,6 +645,255 @@ def phase_train(dev, wk):
     return res
 
 
+CLI_RECIPE = ("upRes 4 tileSizeLow 16 batchSize 16 densityThreshold 0 "
+              "useTempoD 1 ganLoss hinge r1Gamma 10 r1Interval 16 "
+              "lrdisc 0.0004 emaDecay 0.999 randSeed 0")
+
+
+def smooth_dataset(base, n_sims=2, n_frames=4, size=32, up=4, seed=0):
+    """Smooth density and velocity fields (sums of drifting sinusoids made
+    with numpy from ``seed``) written as .uni: HR density at size·up, LR
+    density as its 4³ block mean, LR velocity in LR cells per frame."""
+    from mpgan_torch.data import loader
+    from mpgan_torch.io import uni
+
+    rng = np.random.default_rng(seed)
+    n = size * up
+    r = np.stack(np.meshgrid(*(np.arange(n, dtype=np.float32) * (2 * np.pi
+                                                                 / n),) * 3,
+                             indexing="ij"))                  # (3, n, n, n)
+    r_lr = r[:, up // 2::up, up // 2::up, up // 2::up]
+    for sim in range(n_sims):
+        d = os.path.join(base, f"sim_{1000 + sim:04d}")
+        os.makedirs(d)
+        k = rng.integers(1, 4, (4, 3)).astype(np.float32)
+        phi, drift = rng.random(4) * 6.28, rng.random(4) * 0.3
+        kv = rng.integers(1, 3, (3, 3)).astype(np.float32)
+        for f in range(n_frames):
+            arg = np.tensordot(k, r, 1) + (phi + drift * f)[:, None, None,
+                                                            None]
+            hr = np.clip(0.5 + 0.15 * np.sin(arg).sum(0), 0, 1)
+            lr = hr.reshape(size, up, size, up, size, up).mean((1, 3, 5))
+            vel = 0.5 * np.sin(np.tensordot(kv, r_lr, 1) + 0.1 * f)
+            uni.write_density(os.path.join(d, loader.HIGH_DENSITY % f),
+                              hr.astype(np.float32))
+            uni.write_density(os.path.join(d, loader.LOW_DENSITY % f),
+                              lr.astype(np.float32))
+            uni.write_velocity(os.path.join(d, loader.LOW_VELOCITY % f),
+                               np.moveaxis(vel, 0, -1).astype(np.float32))
+
+
+def _state_tensors(state):
+    """Every tensor of a train state (``Trainer.state()`` or a restored
+    checkpoint) on the host, by path."""
+    out = {}
+
+    def walk(prefix, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(f"{prefix}/{k}", v)
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{prefix}/{i}", v)
+        elif torch.is_tensor(x):
+            out[prefix] = x.detach().to("cpu")
+    walk("", state)
+    return out
+
+
+def _last_metrics(run):
+    """The last row of a run dir's metrics.jsonl."""
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        return json.loads(f.read().splitlines()[-1])
+
+
+def _state_gap(a, b):
+    assert set(a) == set(b), set(a) ^ set(b)
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def phase_cli(dev, wk):
+    from mpgan_torch import cli
+    from mpgan_torch import config as cfgmod
+    from mpgan_torch.data.loader import FluidDataLoader
+    from mpgan_torch.data.pipeline import TileCreator
+    from mpgan_torch.infer import assemble, load
+    from mpgan_torch.io import uni
+    from mpgan_torch.train import checkpoint as ckpt
+    from mpgan_torch.train import loop
+
+    t0 = phase("8 CLI: out 0 pass 1 (save, resume), out 0 pass 3, out 1 "
+               "with 3 passes")
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        # (a) data and the bundled pair as gen-only runs
+        t = time.perf_counter()
+        smooth_dataset(os.path.join(d, "data"))
+        runs = os.path.join(d, "runs")
+        for idx, name in ((0, "g1_l1_4x"), (1, "g2_l1_4x")):
+            dst = os.path.join(runs, f"test_{idx:04d}", "gen_0000")
+            os.makedirs(dst)
+            src = load.bundled_weights(name)
+            shutil.copy(src, os.path.join(dst, "params.npz"))
+            shutil.copy(os.path.splitext(src)[0] + ".json",
+                        os.path.join(dst, "params.json"))
+        res["data_s"] = time.perf_counter() - t
+        data = (f"basePath {d}/data/ fromSim 1000 toSim 1001 frameMax 4 "
+                f"testPath {runs}/ ")
+
+        def run_cli(args, sims=data):
+            t = time.perf_counter()
+            cli.main((sims + args).split())
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        # (b) pass 1, bf16, flagship: test_0002
+        res["pass1_bf16_s"] = run_cli(
+            f"out 0 {CLI_RECIPE} trainingIters 8 saveInterval 4 "
+            "outputInterval 8")
+        run1 = ckpt.run_dir(runs, 2)
+        assert {ckpt.latest_model_no(run1), ckpt.latest_gen_no(run1)} == {2}
+        meta = ckpt.read_json(ckpt.model_dir(run1, 2) + ".json")
+        assert meta == {"it": 8, "stage": 2, "pass_no": 1, "up_res": 4,
+                        "total_iters": 8}, meta
+        assert os.path.isdir(ckpt.gen_dir(run1, 1, "gen_ema"))
+        last = _last_metrics(run1)
+        assert all(np.isfinite(last[k]) for k in TRAIN_METRICS), last
+        before = sorted(os.listdir(run1))
+        res["resume_index_fast_path_s"] = run_cli(
+            f"out 0 {CLI_RECIPE} trainingIters 8 resumeIndex 2")
+        assert sorted(os.listdir(run1)) == before
+        assert ckpt.latest_run_idx(runs) == 2
+
+        # the card's checkpoint on the CPU and a CPU save on the card
+        cfg = cfgmod.from_cli((data + CLI_RECIPE).split())
+        ds = FluidDataLoader(f"{d}/data/", 1000, 1001, 0, 4).get()
+        tr = loop.Trainer(cfg, TileCreator(ds, 16, 0.0, device=dev), dev)
+        t = time.perf_counter()
+        it = tr.restore(run1, 1)
+        torch.cuda.synchronize()
+        res["restore_s"] = time.perf_counter() - t
+        assert it == 4 and tr.rt.step == 4
+        t = time.perf_counter()
+        tr.save(os.path.join(d, "card_save"), 0, it)
+        torch.cuda.synchronize()
+        res["save_s"] = time.perf_counter() - t
+        res["state_bytes"] = os.path.getsize(os.path.join(
+            ckpt.model_dir(os.path.join(d, "card_save"), 0), ckpt.STATE_FILE))
+        cpu_tr = loop.Trainer(cfg, TileCreator(ds, 16, 0.0, device="cpu"),
+                              "cpu")
+        cpu_tr.restore(run1, 1)
+        gap_to_cpu = _state_gap(_state_tensors(tr.state()),
+                                _state_tensors(cpu_tr.state()))
+        cpu_tr.save(os.path.join(d, "cpu_save"), 0, it)
+        back = loop.Trainer(cfg, TileCreator(ds, 16, 0.0, device=dev), dev)
+        back.restore(os.path.join(d, "cpu_save"), 0)
+        gap_from_cpu = _state_gap(_state_tensors(back.state()),
+                                  _state_tensors(cpu_tr.state()))
+        assert gap_to_cpu == 0.0 and gap_from_cpu == 0.0, (gap_to_cpu,
+                                                            gap_from_cpu)
+        del tr, cpu_tr, back
+
+        # the recipe in float32: test_0003, resumed twice from model_0001
+        # into test_0004 and test_0005
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = ("out 0 " + CLI_RECIPE.replace("lrdisc 0.0004", "lrdisc 0.01")
+               + " dtype float32 lrgan 1 adamEps 1 outputInterval 4 ")
+        res["pass1_f32_s"] = run_cli(f32 + "trainingIters 4 saveInterval 2")
+        for _ in range(2):
+            run_cli(f32 + "trainingIters 2 saveInterval 0 resumeTest 3 "
+                    "resumeNo 1")
+        conts = [ckpt.restore(ckpt.run_dir(runs, i), 0, "cpu")
+                 for i in (4, 5)]
+        assert all(m["it"] == 4 for _, m in conts), [m for _, m in conts]
+        resume_gap = _state_gap(_state_tensors(conts[0][0]),
+                                _state_tensors(conts[1][0]))
+        assert resume_gap <= 1e-4, resume_gap
+        res["f32_resume_max_abs_gap"] = resume_gap
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+        # (c) pass 3 on the bundled chain's outputs: test_0006
+        n3 = 4
+        wk.launches = wk.bwd_launches = 0                  # path starts
+        res["pass3_s"] = run_cli(
+            f"out 0 {CLI_RECIPE} trainPass 3 pass3Source model "
+            f"load_model_test 0 load_model_test2 1 trainingIters {n3} "
+            f"saveInterval 2 outputInterval {n3}")
+        launches3 = (wk.launches, wk.bwd_launches)         # path ends
+        assert launches3 == (3 * n3, n3), launches3
+        run3 = ckpt.run_dir(runs, 6)
+        assert ckpt.run_pass_no(run3) == 3
+        last = _last_metrics(run3)
+        assert all(np.isfinite(last[k]) for k in TRAIN_METRICS), last
+        # its checkpoint in a Trainer: 2 windows of 16 steps
+        g1 = load.load_generator(cfg, 1, 0, -1, dev)
+        g2 = load.load_generator(cfg, 2, 1, -1, dev)
+        finals = assemble.precompute_finals(g1, g2, torch.from_numpy(
+            ds.lr).to(dev), 4)
+        assert finals.shape == (8, 128, 128, 128, 1)
+        tc3 = TileCreator(ds, 16, 0.0, device=dev, final=finals)
+        tr3 = loop.Trainer(cfg, tc3, dev, pass_no=3)
+        it = tr3.restore(run3, ckpt.latest_model_no(run3))
+        tr3.fit(it + 2, start_it=it, log_every=2)          # warm-up
+        it += 2
+        n, windows = 16, 2
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(windows + 1)]
+        wk.launches = wk.bwd_launches = 0
+        torch.cuda.synchronize()
+        events[0].record()
+        for w in range(windows):
+            out3 = tr3.fit(it + (w + 1) * n, start_it=it + w * n,
+                           log_every=n)
+            events[w + 1].record()
+        torch.cuda.synchronize()
+        assert (wk.launches, wk.bwd_launches) == (3 * n * windows,
+                                                  n * windows)
+        assert all(np.isfinite(out3[k]) for k in TRAIN_METRICS), out3
+        ms3 = [events[w].elapsed_time(events[w + 1]) / n
+               for w in range(windows)]
+        res["pass3"] = {"cli_steps": n3, "warp_launches": launches3[0],
+                        "warp_bwd_launches": launches3[1],
+                        "ms_per_step_windows": ms3,
+                        "metrics": {k: last[k] for k in TRAIN_METRICS}}
+        del tr3, tc3, finals
+
+        # (d) out 1, three passes, two frames: test_0007
+        res["out1_3pass_s"] = run_cli(
+            "out 1 load_model_test 0 load_model_test2 1 load_model_test3 6 "
+            "outFrameMin 1 outFrameMax 3",
+            sims=data.replace("toSim 1001", "toSim 1000"))
+        assert len(os.listdir(ckpt.run_dir(runs, 7))) == 2
+        cfg.train.load_model_test = 0
+        chain = load.load_pass_chain(cfg, 1, -1, 6, -1, device=dev)
+        out_gap = 0.0
+        for f in (1, 2):
+            got = uni.readUni(os.path.join(ckpt.run_dir(runs, 7),
+                                           f"source_1000_{f:04d}.uni"))[1]
+            lr = load.read_lr_frame(cfg, os.path.join(d, "data",
+                                                      "sim_1000"), f)
+            with torch.inference_mode():
+                want = assemble.upscale_volume(
+                    chain[0], chain[1], torch.from_numpy(lr).to(dev), 4,
+                    gen3=chain[2]).float().cpu().numpy()
+            assert got.shape == want.shape == (128, 128, 128, 1)
+            assert np.isfinite(got).all()
+            out_gap = max(out_gap, float(np.abs(got - want).max()))
+        assert out_gap == 0.0, out_gap
+        res["out1_max_abs_gap"] = out_gap
+        lr_dev = torch.from_numpy(lr).to(dev)
+        with torch.inference_mode():
+            res["frame_3pass_ms"] = cuda_ms(lambda: assemble.upscale_volume(
+                chain[0], chain[1], lr_dev, 4, gen3=chain[2]), 10)
+            res["frame_2pass_ms"] = cuda_ms(lambda: assemble.upscale_volume(
+                chain[0], chain[1], lr_dev, 4), 10)
+    print("   cli " + json.dumps(res), flush=True)
+    done(t0)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke run needs "
@@ -647,6 +919,7 @@ def main():
     phase_serve(dev, bundled_lr)
     align_launches, align_err = phase_align(dev, wk)
     train = phase_train(dev, wk)
+    cli_res = phase_cli(dev, wk)
 
     # launches: each kernel's count on the path that runs it, the train
     # step (7b) for the triplet kernels, advect_2d_fast (2b) for the
@@ -673,12 +946,15 @@ def main():
     kernels[0]["build_s"] = build_s
     kernels[2].update(launches_per_train_step=train["warp_launches_per_step"],
                       launches_align=align_launches,
-                      launches_pass2=train["pass2"]["warp_launches"])
+                      launches_pass2=train["pass2"]["warp_launches"],
+                      launches_pass3_cli=cli_res["pass3"]["warp_launches"])
     kernels[3].update(
         launches_per_train_step=train["warp_bwd_launches_per_step"],
-        launches_pass2=train["pass2"]["warp_bwd_launches"])
+        launches_pass2=train["pass2"]["warp_bwd_launches"],
+        launches_pass3_cli=cli_res["pass3"]["warp_bwd_launches"])
     print(json.dumps({"kernels": kernels, "main_path": bench,
-                      "bundled": quality, "train": train}), flush=True)
+                      "bundled": quality, "train": train, "cli": cli_res}),
+          flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -4,8 +4,7 @@ A copy of the dataclasses and flags of ``mpgan_tpu/config.py`` that the
 port reads — data, model, losses and training — with the same flag names
 and defaults. The port imports nothing of the JAX package, so it keeps its
 own copy. Flags of what the port does not run yet (``profileDir``,
-``debugNans``, ``load_model_*``, ``saveInterval``, ``testPath``) are parsed
-and stored; an unknown flag aborts.
+``debugNans``) are parsed and stored; an unknown flag aborts.
 """
 
 from __future__ import annotations
@@ -81,11 +80,11 @@ class TrainConfig:
     gen_runs: int = 1
     first_gen_run: bool = True      # train pass-1 (else pass-2)
     use_temporal_disc: bool = True
-    save_interval: int = 1000       # parsed; checkpoints are not ported yet
+    save_interval: int = 1000
     output_interval: int = 100
     rand_seed: int = 42
     test_path: str = "test_out/"
-    load_model_test: int = -1       # parsed; resume is not ported yet
+    load_model_test: int = -1
     load_model_no: int = -1
     # progressive growing
     use_growing: bool = False
@@ -103,7 +102,19 @@ class TrainConfig:
 
 @dataclass
 class InferConfig:
+    output_only: bool = False       # 'out 1' in the reference CLI
+    frame_min: int = 0
+    frame_max: int = 120
     slice_chunk: int = 0            # slices per generator call; 0 = one batch
+    write_uni: bool = True
+    write_png: bool = False
+    use_ema: bool = False           # load gen_ema_%04d instead of gen_%04d
+    # the JAX package's pipeline-parallel split; one device here, so it is
+    # parsed and changes nothing
+    pipeline_split: str = ""
+    # idempotent sweeps: write into an existing test_%04d run dir, skipping
+    # frames whose output exists (-1 = allocate a fresh dir)
+    write_test: int = -1
 
 
 @dataclass
@@ -205,6 +216,17 @@ def from_cli(argv: list[str] | None = None) -> Config:
         profile_dir=g("profileDir", TrainConfig.profile_dir),
         debug_nans=bool(g("debugNans", 0)),
     )
-    infer = InferConfig(slice_chunk=g("sliceChunk", InferConfig.slice_chunk))
+    infer = InferConfig(
+        # outputOnly is the upstream-tempoGAN spelling of `out`
+        output_only=bool(g("out", g("outputOnly", 0))),
+        frame_min=g("outFrameMin", data.frame_min),
+        frame_max=g("outFrameMax", data.frame_max),
+        slice_chunk=g("sliceChunk", InferConfig.slice_chunk),
+        write_uni=bool(g("writeUni", 1)),
+        write_png=bool(g("writePng", 0)),
+        use_ema=bool(g("useEma", 0)),
+        pipeline_split=str(g("pipelineSplit", "")),
+        write_test=g("writeTest", InferConfig.write_test),
+    )
     ph.checkUnusedParams()
     return Config(data=data, model=model, loss=loss, train=train, infer=infer)

@@ -6,7 +6,10 @@ cannot read (it imports no JAX). ``scripts/export_torch_weights.py`` — a
 JAX-side script the port never imports — restores a checkpoint and writes
 its parameter tree here as flat ``stem/kernel``-style keys, with a JSON
 sidecar (``pass_no``, ``stage``, ``up_res``). :func:`flax_to_state_dict`
-is the one function that maps the JAX package's parameters into the port's.
+is the one function that maps the JAX package's parameters into the port's;
+:func:`state_dict_to_flax` is its inverse, with which the port's trainer
+writes its generators in the same ``.npz`` layout, so that one weight
+format serves export, training, inference and serving.
 """
 
 from __future__ import annotations
@@ -67,6 +70,30 @@ def flax_to_state_dict(params_np: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"unexpected flax leaf {key!r}")
         sd[".".join([*mod, name])] = t.to(torch.float32)
     return sd
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor]
+                       ) -> dict[str, np.ndarray]:
+    """Torch ``state_dict`` → flat flax params ``{"a/b/kernel": array}``:
+    the exact inverse of :func:`flax_to_state_dict` (OIHW → HWIO,
+    (out, in) → (in, out), ``weight`` → ``kernel``), float32."""
+    flat = {}
+    for key, t in sd.items():
+        *mod, leaf = key.split(".")
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                arr = arr.T
+            else:
+                raise ValueError(f"{key}: expected an OIHW conv or (out, in) "
+                                 f"dense weight, got shape {arr.shape}")
+            leaf = "kernel"
+        elif leaf != "bias":
+            raise ValueError(f"unexpected state_dict entry {key!r}")
+        flat["/".join([*mod, leaf])] = np.ascontiguousarray(arr)
+    return flat
 
 
 def sidecar_path(npz_path: str) -> str:

@@ -9,8 +9,8 @@ batch runs on the tile creator's device.
 Each sampler is split in two:
 - *draw* (:func:`draw`): an explicit ``torch.Generator`` yields the dense
   cells picked, their jitter and the transforms (:class:`Draws`);
-- *assemble* (:func:`assemble_pass1`, :func:`assemble_pass2`): a pure
-  function of the volumes and the draws.
+- *assemble* (:func:`assemble_pass1`, :func:`assemble_pass2`,
+  :func:`assemble_pass3`): a pure function of the volumes and the draws.
 Tests inject draws into the second half; the JAX package's random bits
 cannot be reproduced here.
 
@@ -20,11 +20,12 @@ normal x. Gathered velocity channels are permuted to the per-plane layout
 ``[density, v_w, v_h, v_out]``.
 
 Sources: ``lr`` (N, Z, Y, X, C) LR volumes; ``hrz`` (N, Z, Y·s, X·s, 1) HR
-density downsampled along z only (the pass-1 target and pass-2 input);
-``hr`` (N, Z·s, Y·s, X·s, 1) full HR density (the pass-2 target).
-Residency is lazy and per pass: pass 1 puts only ``lr`` and ``hrz`` on the
-device, and ``hrz`` is built one HR volume at a time. Sharded residency and
-pass 3 are not ported yet.
+density downsampled along z only (the pass-1 target); ``interm`` (the
+pass-2 input: frozen-G1 outputs, else ``hrz``); ``final`` (N, Z·s, Y·s,
+X·s, 1) (the pass-3 input: two-pass outputs, else ``hr``); ``hr`` the full
+HR density (the pass-2 and pass-3 target). Residency is lazy and per pass:
+pass 1 puts only ``lr`` and ``hrz`` on the device, and ``hrz`` is built one
+HR volume at a time. Sharded residency waits for the parallelism slice.
 """
 
 from __future__ import annotations
@@ -267,6 +268,32 @@ def assemble_pass2(lr: torch.Tensor, interm_src: torch.Tensor,
     return _split(out, temporal, b)
 
 
+def assemble_pass3(lr: torch.Tensor, final_src: torch.Tensor,
+                   hr: torch.Tensor, dense_idx: torch.Tensor, draws: Draws,
+                   plane: str, temporal: bool, st: TCStatic) -> dict:
+    """Pass-3 batch from drawn values (JAX ``_sample_pass3``): {'final'
+    (B,ts,ts,1), 'lr_vel' (B,ts,ts,3), 'hr' (B,ts,ts,1)} [+ '_prev' /
+    '_next'], all at full-HR spacing and the same coordinates: a
+    constant-resolution refinement patch."""
+    vol, centers = _candidates(draws.pick, draws.jitter, plane, dense_idx, st,
+                               normal_hr=True)
+    b = vol.shape[0]
+    vol, centers, a, ainv = _with_neighbours(vol, centers, draws.a,
+                                             draws.ainv, temporal)
+    t, s = st.tile_lr, st.up_res
+    cin = plane_patch_coords(plane, centers, a, t * s, t * s, 1.0 / s,
+                             1.0 / s)
+    hr_scale = (float(s), float(s), float(s))
+    out = {"final": gather_patch(final_src, vol, cin, hr_scale)}
+    if st.n_vel:
+        lrp = gather_patch(lr, vol, cin, (1.0, 1.0, 1.0))
+        lrp = transform_vectors(_permute_channels(lrp, plane, st.n_vel),
+                                ainv, st.n_vel)
+        out["lr_vel"] = lrp[..., 1:4]
+    out["hr"] = gather_patch(hr, vol, cin, hr_scale)
+    return _split(out, temporal, b)
+
+
 def dense_cell_index(lr: np.ndarray, density_threshold: float,
                      n_frames: int) -> tuple[np.ndarray, np.ndarray,
                                              tuple[int, int, int]]:
@@ -299,13 +326,34 @@ class TileCreator:
                  density_threshold: float = 0.002,
                  augment: bool = True, rot_mode: int = 2,
                  scale_min: float = 0.85, scale_max: float = 1.15,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 interm: np.ndarray | torch.Tensor | None = None,
+                 final: np.ndarray | torch.Tensor | None = None):
         """``device``: where the volumes live and batches are assembled —
-        CUDA unless the caller asks for the CPU."""
+        CUDA unless the caller asks for the CPU. ``interm``: optional
+        (N, Z, Y·s, X·s, 1) pass-2 input volumes in place of ``hrz`` (the
+        frozen G1's outputs, :func:`mpgan_torch.infer.assemble.
+        precompute_intermediates`); ``final``: optional (N, Z·s, Y·s, X·s,
+        1) pass-3 input volumes in place of ``hr`` (two-pass outputs,
+        ``precompute_finals``). Both are placed on the device at first
+        use."""
         self.device = resolve_device(device)
         self._host_lr = dataset.lr
         self._host_hr = dataset.hr
         self._dev: dict = {}
+        self._src: dict = {}
+        if interm is not None:
+            hrz_shape = (dataset.hr.shape[0], dataset.lr.shape[1],
+                         *dataset.hr.shape[2:])
+            if tuple(interm.shape) != hrz_shape:
+                raise ValueError(f"interm shape {tuple(interm.shape)} != "
+                                 f"expected {hrz_shape}")
+            self._src["interm"] = interm
+        if final is not None:
+            if tuple(final.shape) != tuple(dataset.hr.shape):
+                raise ValueError(f"final shape {tuple(final.shape)} != "
+                                 f"expected {tuple(dataset.hr.shape)}")
+            self._src["final"] = final
         n_frames = int(dataset.n_frames)
         dense, dense_t, pool = dense_cell_index(dataset.lr, density_threshold,
                                                 n_frames)
@@ -330,7 +378,9 @@ class TileCreator:
 
     # lazy device tensors -------------------------------------------------
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
+    def _put(self, x: np.ndarray | torch.Tensor) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     @property
@@ -366,6 +416,24 @@ class TileCreator:
                 self._dev["hrz"] = acc
         return self._dev["hrz"]
 
+    @property
+    def interm(self) -> torch.Tensor:
+        """The pass-2 input source: the given ``interm``, else ``hrz``."""
+        if "interm" not in self._dev:
+            if "interm" not in self._src:
+                return self.hrz
+            self._dev["interm"] = self._put(self._src.pop("interm"))
+        return self._dev["interm"]
+
+    @property
+    def final(self) -> torch.Tensor:
+        """The pass-3 input source: the given ``final``, else ``hr``."""
+        if "final" not in self._dev:
+            if "final" not in self._src:
+                return self.hr
+            self._dev["final"] = self._put(self._src.pop("final"))
+        return self._dev["final"]
+
     def _idx(self, temporal: bool) -> torch.Tensor:
         return self.dense_idx_t if temporal else self.dense_idx
 
@@ -386,10 +454,19 @@ class TileCreator:
     def sample_pass2(self, generator: torch.Generator, batch: int,
                      temporal: bool = False, plane: str = "xz") -> dict:
         """Pass-2 batch: {'interm' (B,t,ts,1), 'lr_vel' (B,t,ts,3),
-        'hr' (B,ts,ts,1)} [+ prev/next]. The input source is ``hrz``
-        (training G2 on G1 outputs is not ported yet)."""
+        'hr' (B,ts,ts,1)} [+ prev/next], the input from ``interm``."""
         self._check(generator)
         didx = self._idx(temporal)
-        return assemble_pass2(self.lr, self.hrz, self.hr, didx,
+        return assemble_pass2(self.lr, self.interm, self.hr, didx,
+                              draw(generator, batch, didx, self.st), plane,
+                              temporal, self.st)
+
+    def sample_pass3(self, generator: torch.Generator, batch: int,
+                     temporal: bool = False, plane: str = "yz") -> dict:
+        """Pass-3 batch: {'final' (B,ts,ts,1), 'lr_vel' (B,ts,ts,3),
+        'hr' (B,ts,ts,1)} [+ prev/next], the input from ``final``."""
+        self._check(generator)
+        didx = self._idx(temporal)
+        return assemble_pass3(self.lr, self.final, self.hr, didx,
                               draw(generator, batch, didx, self.st), plane,
                               temporal, self.st)

@@ -1,6 +1,6 @@
 """Full-volume multi-pass inference + slice reassembly.
 
-Counterpart of ``mpgan_tpu/infer/assemble.py`` :29-142 and :278-283:
+Counterpart of ``mpgan_tpu/infer/assemble.py`` :29-142 and :245-283:
 LR volume (Z, Y, X, C) →
   pass 1: all z-slices (xy planes) through G1 → intermediate
           (Z, Y·s, X·s, 1);
@@ -12,8 +12,9 @@ LR volume (Z, Y, X, C) →
 Channel layouts match the training pipeline: xy slices use [d, vx, vy, vz],
 xz slices [d, vx, vz, vy], yz slices [d, vz, vy, vx]. Generators are
 :class:`mpgan_torch.models.generator.Generator` modules that own their
-parameters. The host-streamed assembly, the dataset sweeps and the mesh
-wait for later slices.
+parameters. :func:`precompute_intermediates` and :func:`precompute_finals`
+sweep a dataset for pass-2 and pass-3 training. The host-streamed assembly
+and the mesh wait for later slices.
 """
 
 from __future__ import annotations
@@ -105,6 +106,44 @@ def upscale_volume(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
     if gen3 is not None:
         out = pass3_volume(gen3, out, lr_vel, chunk=chunk)
     return out
+
+
+def _sweep(one, lr_vols: torch.Tensor) -> torch.Tensor:
+    """``one`` over each volume of ``lr_vols`` under inference mode, each
+    result cast to float32 into one output tensor allocated once (as the
+    JAX package's single-allocation ``lax.map``: a list and a stack would
+    hold the sweep twice)."""
+    n = lr_vols.shape[0]
+    with torch.inference_mode():
+        first = one(lr_vols[0])
+    # allocated outside inference mode: the sweep feeds training, where an
+    # inference tensor could not take part in autograd
+    out = torch.empty((n, *first.shape), dtype=torch.float32,
+                      device=first.device)
+    with torch.inference_mode():
+        out[0] = first
+        for i in range(1, n):
+            out[i] = one(lr_vols[i])
+    return out
+
+
+def precompute_intermediates(gen1, lr_vols: torch.Tensor,
+                             stage: int | None = None,
+                             chunk: int = 0) -> torch.Tensor:
+    """Frozen-G1 sweep over a dataset: (N, Z, Y, X, C) LR volumes →
+    (N, Z, Y·s, X·s, 1) float32 intermediate volumes, the pass-2 training
+    inputs when G2 trains on G1 outputs (JAX ``:245-261``)."""
+    return _sweep(lambda v: pass1_volume(gen1, v, stage=stage, chunk=chunk),
+                  lr_vols)
+
+
+def precompute_finals(gen1, gen2, lr_vols: torch.Tensor, up_res: int,
+                      chunk: int = 0) -> torch.Tensor:
+    """Frozen two-pass sweep: (N, Z, Y, X, C) LR → (N, Z·s, Y·s, X·s, 1)
+    float32 full-res volumes, the pass-3 training inputs (JAX
+    ``:264-275``)."""
+    return _sweep(lambda v: upscale_volume(gen1, gen2, v, up_res,
+                                           chunk=chunk), lr_vols)
 
 
 def psnr_volume(fake, real, peak: float = 1.0) -> float:

@@ -8,12 +8,15 @@ Profiles (torch.profiler, CPU + CUDA activities) after warm-up:
   inclusive device time (nested ops each list their children's time),
   and the device busy share (summed kernel time over the window's wall
   time);
-- each warp kernel alone (single-field forward, triplet forward, triplet
-  backward) at the trainer's shape (B=16, 64²) and at B=256, 256², 100
-  calls each: device time per call against the host-side time per call;
+- each warp kernel alone (single-field forward and backward, triplet
+  forward and backward) at the trainer's shape (B=16, 64²) and at B=256,
+  256², 100 calls each: device time per call against the host-side time
+  per call;
 - the train step of the flagship recipe (mpgan_torch.train.recipe: pass 1,
-  4x, B=16, tile 16, temporal D, hinge + lazy R1 + TTUR + EMA, bf16),
-  through Trainer.fit after 3 warm-up steps: first 16 steps without the
+  4x, B=16, tile 16, temporal D, hinge + lazy R1 + TTUR + EMA, bf16), and
+  the same recipe as a pass-3 refiner (64² full-resolution patches, the
+  HR volumes as its input source), through Trainer.fit after 3 warm-up
+  steps: first 16 steps without the
   profiler (wall ms per step between CUDA events, and the host time of
   the warp path, forward and backward apart, timed by wrapping them:
   :func:`warp_path_probe`), then 8 steps under the profiler (kernel time
@@ -140,11 +143,13 @@ def _range_device(events, name) -> tuple[float, int]:
     return us, n
 
 
-def train_breakdown(dev) -> dict:
-    """The flagship train step: unprofiled times, then a profile."""
+def train_breakdown(dev, pass_no: int = 1) -> dict:
+    """The flagship train step of pass ``pass_no``: unprofiled times, then
+    a profile."""
     tc = TileCreator(recipe.synthetic_dataset(), 16, density_threshold=0.0,
                      device=dev)
-    tr = loop.Trainer(recipe.flagship_config("bfloat16"), tc, device=dev)
+    tr = loop.Trainer(recipe.flagship_config("bfloat16"), tc, device=dev,
+                      pass_no=pass_no)
     tr.fit(3, log_every=3)
     it = 3
 
@@ -181,8 +186,8 @@ def train_breakdown(dev) -> dict:
     # autograd engine's thread out of the range around it
     warp_bwd_us = sum(r[1] for r in kernels if "warp2d_bwd" in r[0])
     return {
-        "recipe": "flagship pass 1 4x, B=16 tile 16, bf16, temporal D, "
-                  "hinge + lazy R1 (16) + TTUR + EMA",
+        "recipe": f"flagship pass {pass_no} 4x, B=16 tile 16, bf16, "
+                  "temporal D, hinge + lazy R1 (16) + TTUR + EMA",
         "unprofiled": {
             "steps": n, "ms_per_step": step_ms,
             "steps_per_s": 1e3 / step_ms, "samples_per_s": 16e3 / step_ms,
@@ -240,6 +245,8 @@ def main():
         gt = torch.randn((b, 3, h, w), generator=g,
                          device=dev).permute(0, 2, 3, 1)
         calls = {"warp2d": lambda: wk.advect_2d_kernel(f, v, 1.0),
+                 "warp2d_bwd": lambda: wk.advect_2d_kernel_bwd(
+                     gt[..., :1], f, v, 1.0),
                  "warp2d_triplet": lambda: wk.align_triplet_kernel(p, c, f, v),
                  "warp2d_triplet_bwd": lambda: wk.align_triplet_kernel_bwd(
                      gt, p, f, v)}
@@ -257,6 +264,7 @@ def main():
                 "device_busy_share": kern_us / wall_us})
 
     result["train_step"] = train_breakdown(dev)
+    result["train_step_pass3"] = train_breakdown(dev, pass_no=3)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,5 +1,7 @@
 """Training loop — counterpart of ``mpgan_tpu/train/loop.py``
-(single device).
+(single device): passes 1 and 2 with progressive growing, and the pass-3
+refiner (one stage, constant resolution, D factors (1, 1); JAX
+``:472-473``, ``:519-522``, ``:543-548``).
 
 One train step (:class:`TrainStep`, one per growth stage and fade flag)
 samples and augments batches on the device (the tile creator), updates Ds
@@ -25,16 +27,24 @@ Where eager PyTorch differs from the JAX package's one jitted program:
   iteration.
 
 A batch is a dict of NHWC tensors with the JAX pipeline's keys: ``lr``,
-``lr_prev``, ``lr_next`` for pass 1; ``interm`` (+ ``_prev``, ``_next``)
-and ``lr_vel`` (+ ``_prev``, ``_next``) for pass 2; ``hr``, ``hr_prev``,
-``hr_next`` for the targets.
+``lr_prev``, ``lr_next`` for pass 1; ``interm`` (pass 2) or ``final``
+(pass 3) (+ ``_prev``, ``_next``) and ``lr_vel`` (+ ``_prev``, ``_next``);
+``hr``, ``hr_prev``, ``hr_next`` for the targets.
 
-Not ported yet: checkpoints and resume, pass 3, sharded residency and data
-parallelism, heartbeats and fault injection, ``profileDir``, ``debugNans``.
+:meth:`Trainer.save` and :meth:`Trainer.restore` write and read the full
+train state (:mod:`mpgan_torch.train.checkpoint`); ``fit`` calls
+``on_checkpoint`` every ``saveInterval`` iterations, and its sampling
+stream is a function of ``(randSeed, start_it)``, so a resume is
+deterministic.
+
+Not ported yet: sharded residency and data parallelism, heartbeats and
+fault injection, ``profileDir``, ``debugNans``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -51,6 +61,7 @@ from mpgan_torch.models import discriminator as D
 from mpgan_torch.models import generator as G
 from mpgan_torch.models import growing
 from mpgan_torch.ops import warp_kernel
+from mpgan_torch.train import checkpoint as ckpt
 from mpgan_torch.train import losses
 
 _PASS_INPUT_KEY = {1: "lr", 2: "interm", 3: "final"}
@@ -127,7 +138,9 @@ def make_sampler(tc: TileCreator, pass_no: int, batch_size: int,
         return lambda rng: tc.sample_pass1(rng, batch_size, temporal)
     if pass_no == 2:
         return lambda rng: tc.sample_pass2(rng, batch_size, temporal)
-    raise ValueError(f"pass {pass_no} training is not ported yet")
+    if pass_no == 3:
+        return lambda rng: tc.sample_pass3(rng, batch_size, temporal)
+    raise ValueError(f"there is no pass {pass_no}")
 
 
 def _make_opt(cfg: Config, params, disc: bool,
@@ -140,6 +153,17 @@ def _make_opt(cfg: Config, params, disc: bool,
     return torch.optim.Adam(params, lr=lr, betas=(cfg.train.beta1, 0.999),
                             eps=cfg.train.adam_eps,
                             fused=device.type == "cuda")
+
+
+def _load_opt(opt: torch.optim.Optimizer, sd: dict) -> None:
+    """Load an optimizer's moments and step counts. The hyperparameters
+    (learning rate, betas, ε, ``fused``) stay this run's, as in optax,
+    where they live in the transformation and not in its state."""
+    groups = [{k: v for k, v in g.items() if k != "params"}
+              for g in opt.param_groups]
+    opt.load_state_dict(sd)
+    for g, fresh in zip(opt.param_groups, groups):
+        g.update(fresh)
 
 
 def _update(opt: torch.optim.Optimizer, params: list[torch.Tensor],
@@ -188,15 +212,14 @@ class TrainStep:
             raise ValueError(
                 "useTempoD requires velocity channels (useVelocities 1): the "
                 "temporal discriminator aligns frames by advection")
-        if pass_no not in (1, 2):
-            raise ValueError(f"pass {pass_no} training is not ported yet")
         self.stage = rt.stage
         self.n_stages = n_stages
         self.up_res = tc.up_res
         s_in = 2 ** self.stage
         self.s_in = s_in
-        # Ds conditioning upsample factors (per axis) for this pass
-        self.cond_f = {1: (s_in, s_in), 2: (s_in, 1)}[pass_no]
+        # Ds conditioning upsample factors (per axis) for this pass; pass 3
+        # is a constant-resolution refiner
+        self.cond_f = {1: (s_in, s_in), 2: (s_in, 1), 3: (1, 1)}[pass_no]
         self.sample = make_sampler(tc, pass_no, cfg.train.batch_size,
                                    self.temporal)
         self.device = tc.device
@@ -399,9 +422,10 @@ class Trainer:
                              f"the trainer runs on {self.device}")
         self.pass_no = pass_no if pass_no is not None else (
             1 if cfg.train.first_gen_run else 2)
-        if self.pass_no not in (1, 2):
-            raise ValueError(f"pass {self.pass_no} training is not ported yet")
-        self.n_stages = cfg.model.stages
+        if self.pass_no not in (1, 2, 3):
+            raise ValueError(f"there is no pass {self.pass_no}")
+        # pass 3 is a single-stage refiner; growing does not apply
+        self.n_stages = 1 if self.pass_no == 3 else cfg.model.stages
         self.schedule = (growing.GrowthSchedule(
             self.n_stages, cfg.train.alpha_iters, cfg.train.stable_iters)
             if cfg.train.use_growing else None)
@@ -423,11 +447,17 @@ class Trainer:
             c_in = 1 + st.n_vel + st.n_vort
             gen = G.make_pass1(stage, in_channels=c_in, **kw)
             dfac, hw = (2, 2), (t * s, t * s)
-        else:
+        elif self.pass_no == 2:
             # pass-2 input: intermediate density + velocity (no vorticity)
             c_in = 1 + st.n_vel
             gen = G.make_pass2(stage, in_channels=c_in, **kw)
             dfac, hw = (2, 1), (t * s, t * self.tc.up_res)
+        else:
+            # pass-3 input: full-res density + velocity, constant resolution
+            c_in = 1 + st.n_vel
+            gen = G.make_pass3(in_channels=c_in, **kw)
+            ts = t * self.tc.up_res
+            dfac, hw = (1, 1), (ts, ts)
         factors = (dfac,) * stage
         dkw = dict(base_filters=mcfg.disc_base_filters, factors=factors,
                    dtype=dtype, generator=self.init_rng)
@@ -487,14 +517,86 @@ class Trainer:
             self.rt = self._init_stage(stage, None)
         return self.rt
 
+    # ----------------------------------------------------------- checkpoint
+
+    def state(self) -> dict:
+        """The full train state as tensors and plain containers: the three
+        nets' and optimizers' ``state_dict``s, the EMA and the step."""
+        rt = self.runtime()
+        return {
+            "gen": rt.gen.state_dict(), "ds": rt.ds.state_dict(),
+            "dt": rt.dt.state_dict() if rt.dt is not None else {},
+            "opt_g": rt.opt_g.state_dict(), "opt_ds": rt.opt_ds.state_dict(),
+            "opt_dt": rt.opt_dt.state_dict() if rt.opt_dt is not None else {},
+            "ema": dict(rt.ema), "step": rt.step}
+
+    def save(self, run: str, no: int, it: int,
+             total_iters: int | None = None) -> None:
+        """Checkpoint ``no`` of run dir ``run`` at iteration ``it``: the
+        train state as ``model_%04d`` with its sidecar, the generator as
+        ``gen_%04d`` and, with an EMA, ``gen_ema_%04d``."""
+        rt = self.runtime()
+        gen_meta = dict(stage=rt.stage, pass_no=self.pass_no,
+                        up_res=self.tc.up_res)
+        meta = dict(it=it, **gen_meta)
+        if total_iters is not None:
+            meta["total_iters"] = total_iters
+        ckpt.save(run, no, self.state(), meta)
+        ckpt.save_gen(run, no, rt.gen.state_dict(), gen_meta)
+        if rt.ema:
+            ckpt.save_gen(run, no, rt.ema, gen_meta, prefix="gen_ema")
+
+    def restore(self, run_dir: str, model_no: int) -> int:
+        """Resume from checkpoint ``model_no`` of ``run_dir`` (JAX
+        ``:606-643``): rebuild the stage its sidecar records, then load the
+        nets, the optimizers' moments, the EMA and the step. Returns the
+        iteration to resume from. A corrupt sidecar, or one of another
+        pass, raises ``ValueError``; a checkpoint without an EMA (saved
+        without ``gen_ema_%04d``) restarts the average from the params."""
+        meta_path = os.path.abspath(
+            ckpt.model_dir(run_dir, model_no)) + ".json"
+        try:
+            with open(meta_path) as f:
+                meta = json.load(f)
+        except json.JSONDecodeError as e:
+            raise ValueError(
+                f"checkpoint sidecar {meta_path} is corrupt ({e}); pick "
+                "another model_no or delete the damaged checkpoint") from e
+        meta_pass = meta.get("pass_no")
+        if meta_pass is not None and int(meta_pass) != self.pass_no:
+            raise ValueError(
+                f"{meta_path} records training pass {meta_pass}, but this "
+                f"run trains pass {self.pass_no}: resuming across passes "
+                "would restore mismatched parameters")
+        state, _ = ckpt.restore(run_dir, model_no, self.device)
+        rt = self.rt = self._init_stage(
+            int(meta.get("stage", self.n_stages)), None)
+        rt.gen.load_state_dict(state["gen"])
+        rt.ds.load_state_dict(state["ds"])
+        _load_opt(rt.opt_g, state["opt_g"])
+        _load_opt(rt.opt_ds, state["opt_ds"])
+        if rt.dt is not None:
+            rt.dt.load_state_dict(state["dt"])
+            _load_opt(rt.opt_dt, state["opt_dt"])
+        if rt.ema:
+            saved = state.get("ema") or {
+                k: p.detach() for k, p in rt.gen.named_parameters()}
+            for k, v in rt.ema.items():
+                v.copy_(saved[k])
+        rt.step = int(state["step"])
+        return int(meta.get("it", 0))
+
     # ------------------------------------------------------------------ fit
 
     def fit(self, iters: int | None = None, log_every: int | None = None,
-            on_log: Callable | None = None, start_it: int = 0) -> dict:
+            on_log: Callable | None = None, start_it: int = 0,
+            on_checkpoint: Callable | None = None) -> dict:
         """Train iterations ``start_it`` … ``iters − 1``. Every
         ``log_every`` iterations and at the end, the step's metrics are
         read, appended to ``metrics_log`` and passed to ``on_log(self,
-        metrics)``. Returns the last metrics with ``steps_per_sec``."""
+        metrics)``; every ``saveInterval`` iterations before the end,
+        ``on_checkpoint(self, it)`` is called with the iterations done.
+        Returns the last metrics with ``steps_per_sec``."""
         cfg = self.cfg
         iters = iters if iters is not None else cfg.train.training_iters
         log_every = log_every or cfg.train.output_interval
@@ -525,6 +627,10 @@ class Trainer:
                 self.metrics_log.append(last)
                 if on_log:
                     on_log(self, last)
+            save_every = cfg.train.save_interval
+            if (on_checkpoint and save_every and it % save_every == 0
+                    and it < iters):
+                on_checkpoint(self, it)
         if last:
             last["steps_per_sec"] = (it - start_it) / max(last["wall"], 1e-9)
             last["steps_per_dispatch"] = 1

@@ -104,48 +104,73 @@ def _jax_runtime(monkeypatch, cfg, pass_no, seed, ds, batch):
             jtc = jpipeline.TileCreator(jds, cfg.data.tile_size_low,
                                         density_threshold=0.0)
             jtr = jloop.Trainer(jax_config(cfg), jtc, pass_no=pass_no)
-            jrt = jtr._init_stage(cfg.model.stages,
+            # the JAX trainer's stage count: 1 for the pass-3 refiner
+            jrt = jtr._init_stage(jtr.n_stages,
                                   jax.random.PRNGKey(seed), None)
         _JAX_RUNTIMES[key] = (jtr, jrt)
     return _JAX_RUNTIMES[key]
+
+
+def injected_pair(monkeypatch, cfg: tconfig.Config, pass_no: int = 1,
+                  seed: int = 0):
+    """One batch drawn by the port's tile creator, the JAX Trainer and
+    stage runtime whose step samples it, and a port Trainer with the JAX
+    runtime's initial G, Ds, Dt and EMA → (batch, jtr, jrt, port
+    Trainer)."""
+    ds = recipe.synthetic_dataset(size=8, up=4, seed=seed)
+    ttc = tpipeline.TileCreator(ds, cfg.data.tile_size_low,
+                                density_threshold=0.0, device="cpu")
+    temporal = cfg.train.use_temporal_disc
+    sample = {1: ttc.sample_pass1, 2: ttc.sample_pass2,
+              3: ttc.sample_pass3}[pass_no]
+    batch = sample(torch.Generator().manual_seed(seed), cfg.train.batch_size,
+                   temporal)
+    jtr, jrt = _jax_runtime(monkeypatch, cfg, pass_no, seed, ds, batch)
+    ttr = tloop.Trainer(cfg, ttc, device="cpu", pass_no=pass_no)
+    rt = ttr.runtime()
+    rt.gen.load_state_dict(_sd(jrt.state.params_g))
+    rt.ds.load_state_dict(_sd(jrt.state.params_ds))
+    if jrt.state.params_dt:
+        rt.dt.load_state_dict(_sd(jrt.state.params_dt))
+    if jrt.ema:
+        for k, v in _sd(jrt.ema).items():
+            rt.ema[k].copy_(v)
+    return batch, jtr, jrt, ttr
+
+
+def jax_steps(jtr, jrt, step: int, n: int = 1):
+    """``n`` JAX steps from the runtime's initial state at step counter
+    ``step`` → (state, EMA, metrics of the last)."""
+    # the step donates its state and EMA: hand it copies, as the runtime
+    # is reused
+    state = jloop.copy_tree(jrt.state)._replace(step=jnp.int32(step))
+    ema = jloop.copy_tree(jrt.ema)
+    for _ in range(n):
+        state, ema, jm = jrt.step_stable(state, ema, jtr._data(),
+                                         jax.random.PRNGKey(1),
+                                         jnp.ones((1,), jnp.float32))
+    return state, ema, jm
+
+
+def close_to_jax(rt, state, ema):
+    """The port runtime's G, Ds, Dt and EMA against a JAX state."""
+    _close_sd(rt.gen.state_dict(), _sd(state.params_g), "G")
+    _close_sd(rt.ds.state_dict(), _sd(state.params_ds), "Ds")
+    if state.params_dt:
+        _close_sd(rt.dt.state_dict(), _sd(state.params_dt), "Dt")
+    if ema:
+        _close_sd(rt.ema, _sd(ema), "EMA")
 
 
 def step_pair(monkeypatch, cfg: tconfig.Config, pass_no: int = 1,
               step: int = 0, seed: int = 0):
     """Run one step of each side from equal weights on one batch and
     compare metrics and the updated G, Ds, Dt and EMA parameters."""
-    ds = recipe.synthetic_dataset(size=8, up=4, seed=seed)
-    ttc = tpipeline.TileCreator(ds, cfg.data.tile_size_low,
-                                density_threshold=0.0, device="cpu")
-    temporal = cfg.train.use_temporal_disc
-    sample = (ttc.sample_pass1 if pass_no == 1 else ttc.sample_pass2)
-    batch = sample(torch.Generator().manual_seed(seed), cfg.train.batch_size,
-                   temporal)
-
-    # JAX: its Trainer's stage runtime and jitted step, batch injected
-    jtr, jrt = _jax_runtime(monkeypatch, cfg, pass_no, seed, ds, batch)
-    init = {k: _sd(getattr(jrt.state, k))
-            for k in ("params_g", "params_ds", "params_dt") if
-            getattr(jrt.state, k)}
-    init_ema = _sd(jrt.ema) if jrt.ema else None
-    # the step donates its state and EMA: hand it copies, as the runtime
-    # is reused
-    state = jloop.copy_tree(jrt.state)._replace(step=jnp.int32(step))
-    state, ema, jm = jrt.step_stable(state, jloop.copy_tree(jrt.ema),
-                                     jtr._data(),
-                                     jax.random.PRNGKey(1),
-                                     jnp.ones((1,), jnp.float32))
+    batch, jtr, jrt, ttr = injected_pair(monkeypatch, cfg, pass_no, seed)
+    state, ema, jm = jax_steps(jtr, jrt, step)
 
     # port: the same weights, the same batch
-    ttr = tloop.Trainer(cfg, ttc, device="cpu", pass_no=pass_no)
-    rt = ttr.runtime()
-    rt.gen.load_state_dict(init["params_g"])
-    rt.ds.load_state_dict(init["params_ds"])
-    if "params_dt" in init:
-        rt.dt.load_state_dict(init["params_dt"])
-    if init_ema is not None:
-        for k, v in init_ema.items():
-            rt.ema[k].copy_(v)
+    rt = ttr.rt
     rt.step = step
     rt.step_stable.sample = lambda rng: batch
     tm = tloop.read_metrics(rt.step_stable(1.0, torch.Generator()))
@@ -153,12 +178,7 @@ def step_pair(monkeypatch, cfg: tconfig.Config, pass_no: int = 1,
     for k in METRICS:
         np.testing.assert_allclose(tm[k], float(jm[k]), rtol=METRIC_RTOL,
                                    atol=1e-6, err_msg=k)
-    _close_sd(rt.gen.state_dict(), _sd(state.params_g), "G")
-    _close_sd(rt.ds.state_dict(), _sd(state.params_ds), "Ds")
-    if state.params_dt:
-        _close_sd(rt.dt.state_dict(), _sd(state.params_dt), "Dt")
-    if ema:
-        _close_sd(rt.ema, _sd(ema), "EMA")
+    close_to_jax(rt, state, ema)
     assert rt.step == step + 1
     return tm, {k: float(v) for k, v in jm.items()}, rt
 

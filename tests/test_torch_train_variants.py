@@ -46,3 +46,23 @@ def test_hinge_and_wgan_refuse_label_smoothing(mode):
     rt = tloop.Trainer(cfg, tc, device="cpu").runtime()
     with pytest.raises(ValueError, match="labelSmooth"):
         rt.step_stable(1.0, torch.Generator())
+
+
+def test_pass3_matches_jax(monkeypatch):
+    """The pass-3 refiner with temporal D (JAX's single-stage trainer): G
+    and Ds/Dt with factors (1, 1) on full-resolution yz patches, Ds's
+    stride-1 ``down_0`` and its Dense head over the whole map; the step
+    expects 3 forward and 1 backward warp launch, as in pass 1.
+
+    ``lrdisc`` 1e-2: at 1, the updated Dt's Dense head over the whole 16²
+    map scores the fakes at logits of about 20, and its float32 summation
+    noise (parameters within 4e-6 of JAX's) reaches G's update at 1.2e-5;
+    at 1e-2 the same comparison is conditioned (G within 4.4e-6)."""
+    cfg = small_config()
+    cfg.train.lr_disc = 1e-2
+    tm, _, rt = step_pair(monkeypatch, cfg, pass_no=3)
+    assert rt.gen.factors == rt.ds.factors == rt.dt.factors == ((1, 1),)
+    assert rt.stage == 1 and rt.step_stable.cond_f == (1, 1)
+    assert (rt.step_stable.warps_per_step,
+            rt.step_stable.warp_bwds_per_step) == (3, 1)
+    assert np.isfinite(tm["g_loss"]) and tm["dt_loss"] != 0.0

@@ -121,8 +121,8 @@ def test_temporal_d_needs_velocities():
 
 
 def test_trainer_checks_device_and_pass():
-    with pytest.raises(ValueError, match="pass 3"):
-        tloop.Trainer(_config(), _tc(), device="cpu", pass_no=3)
+    with pytest.raises(ValueError, match="pass 4"):
+        tloop.Trainer(_config(), _tc(), device="cpu", pass_no=4)
     # no card: CUDA is refused; a card: the CPU tile creator is
     with pytest.raises((RuntimeError, ValueError)):
         tloop.Trainer(_config(), _tc(), device="cuda")
