@@ -72,6 +72,33 @@ exit, and no result line:
             `out 1` with 3 passes on two frames: 128³ volumes equal to a
             direct upscale_volume of the same chain; that chain's frame
             timed with and without pass 3 (10 frames, CUDA events)
+9. quality  every gate of tests/test_quality.py with the port on the card
+            (mpgan_torch.quality: the same bundled frames, all 22 exported
+            bundles, float32 with TF32 off): each PSNR/SSIM/tdiff value
+            printed beside its floor and held to it; then `python -m
+            mpgan_torch.eval` in process (main([...])) over the canonical
+            4x pair's bundled frame from a temporary run dir laid out from
+            the exported .npz: its PSNR/SSIM equal the gate's
+10. stream  upscale_volume_streamed against upscale_volume on the bundled
+            4x L1 pair at full width, 128³ → 512³, sliceChunk 32, in bf16
+            (max |Δ| ≤ 2^-7, one bf16 unit in the last place of a density
+            in [1, 2): the two paths hand G2 slices of different memory
+            layouts, and cuDNN rounds them differently) and in float32
+            with TF32 off (1e-4); each path's ms per frame and peak device
+            memory (reset between them); then a 1024³ bf16 streamed frame
+11. recover fault recovery of the flagship recipe with the warp kernels:
+            (a) in process, float32 (TF32 off, ganLoss sce, adamEps 1,
+            where the card reproduces an uninterrupted run within
+            atol 1e-4): `out 0` with
+            MPGAN_FAIL_ONCE raises after its first checkpoint, a
+            `resumeLatest 1` rerun finishes it, 3 forward and 1 backward
+            warp launch per step across both (counts reset just before,
+            read just after), and the final state equals an uninterrupted
+            run's (atol 1e-4; the gap between two uninterrupted runs is
+            reported beside it); (b) as a user runs it: `python -m
+            mpgan_torch.cli out 0 ... retryOnError 1` with MPGAN_FAIL_ONCE,
+            then with `hangTimeout 5` and MPGAN_HANG_ONCE; each exits 0 with
+            its final checkpoint in the run dir it owned
 
 Then one JSON line listing every kernel (its launches on the path that
 runs it, its times at B=16 64², and under "large" at B=256 256²), the
@@ -730,13 +757,7 @@ def phase_cli(dev, wk):
         t = time.perf_counter()
         smooth_dataset(os.path.join(d, "data"))
         runs = os.path.join(d, "runs")
-        for idx, name in ((0, "g1_l1_4x"), (1, "g2_l1_4x")):
-            dst = os.path.join(runs, f"test_{idx:04d}", "gen_0000")
-            os.makedirs(dst)
-            src = load.bundled_weights(name)
-            shutil.copy(src, os.path.join(dst, "params.npz"))
-            shutil.copy(os.path.splitext(src)[0] + ".json",
-                        os.path.join(dst, "params.json"))
+        _gen_only_runs(runs, ("g1_l1_4x", "g2_l1_4x"))
         res["data_s"] = time.perf_counter() - t
         data = (f"basePath {d}/data/ fromSim 1000 toSim 1001 frameMax 4 "
                 f"testPath {runs}/ ")
@@ -894,6 +915,223 @@ def phase_cli(dev, wk):
     return res
 
 
+def phase_quality(dev):
+    from mpgan_torch import eval as mp_eval
+    from mpgan_torch import quality
+
+    t0 = phase("9 quality gates of every bundle on the card; mpgan_torch.eval")
+    res = {}
+    for name in quality.GATES:
+        for rec in quality.run_gate(name, dev):
+            for f in rec["floors"]:
+                print(f"   {name} {'+'.join(rec['chain'])}: {f['check']}: "
+                      f"{f['value']:.4f} {'ok' if f['ok'] else 'FAILED'}",
+                      flush=True)
+            assert all(f["ok"] for f in rec["floors"]), rec
+            res.setdefault(name, []).append(
+                {"chain": rec["chain"], **rec["values"]})
+    gate = res["test_4x_canonical_twopass_l1_bundled_floor"][0]
+    with tempfile.TemporaryDirectory() as d:
+        # eval reads sim_%04d dirs: the canonical frame (sim_1010c) as
+        # sim_1010, the exported pair as gen-only runs test_0000/test_0001
+        os.makedirs(os.path.join(d, "data"))
+        os.symlink(os.path.join(DATA, "sim_1010c"),
+                   os.path.join(d, "data", "sim_1010"))
+        runs = os.path.join(d, "runs")
+        _gen_only_runs(runs, ("g1_l1_4x", "g2_l1_4x"))
+        t = time.perf_counter()
+        with quality.full_f32():
+            ev = mp_eval.main(
+                f"basePath {d}/data/ fromSim 1010 toSim 1010 frameMin 12 "
+                f"frameMax 13 upRes 4 dtype float32 load_model_test 0 "
+                f"load_model_test2 1 testPath {runs}/".split())
+        eval_s = time.perf_counter() - t
+    want = {"psnr_mean": round(gate["psnr"], 3),
+            "ssim_mean": round(gate["ssim"], 4),
+            "trilinear_psnr_mean": round(gate["tri"], 3),
+            "trilinear_ssim_mean": round(gate["ssim_tri"], 4)}
+    assert ev["frames"] == 1 and ev["two_pass"], ev
+    assert {k: ev[k] for k in want} == want, (ev, want)
+    done(t0, gates=len(res), eval_s=f"{eval_s:.2f}")
+    return {"gates": res, "eval": ev, "eval_s": eval_s}
+
+
+def _gen_only_runs(runs, names):
+    """The shipped generators ``names`` as gen-only runs test_0000, ...
+    (``gen_0000/params.npz`` + sidecar) under ``runs``."""
+    from mpgan_torch.infer import load
+
+    for idx, name in enumerate(names):
+        dst = os.path.join(runs, f"test_{idx:04d}", "gen_0000")
+        os.makedirs(dst)
+        src = load.bundled_weights(name)
+        shutil.copy(src, os.path.join(dst, "params.npz"))
+        shutil.copy(os.path.splitext(src)[0] + ".json",
+                    os.path.join(dst, "params.json"))
+
+
+def _peak_after(fn):
+    """(result, seconds, peak device bytes) of ``fn()``, synchronised, with
+    the peak counter reset just before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+
+def phase_streamed(dev):
+    from mpgan_torch import quality
+    from mpgan_torch.infer import assemble
+    from mpgan_torch.serve import _to_host
+
+    t0 = phase("10 streamed assembly: 128^3 -> 512^3 and 1024^3, bf16")
+    chunk = 32
+    lr = torch.from_numpy(np.random.default_rng(2).random(
+        (128, 128, 128, 4), dtype=np.float32)).to(dev)
+    res = {"chunk": chunk}
+    # (dtype, max |streamed - in memory|): the two feed G2 slices of
+    # different memory layouts, so cuDNN may pick other kernels and round
+    # differently: in bf16 by one unit in the last place of the densities
+    # (2^-7 in [1, 2)); in float32 with TF32 off within phase 3's 1e-4
+    for dtype, tol in (("bfloat16", 2.0 ** -7), ("float32", 1e-4)):
+        _, g1, g2 = load_chain(dtype, dev)
+
+        def in_memory():
+            return assemble.upscale_volume(g1, g2, lr, 4, chunk=chunk)
+
+        def streamed():
+            return assemble.upscale_volume_streamed(g1, g2, lr, 4,
+                                                    chunk=chunk, chunk1=chunk)
+        with torch.inference_mode(), quality.full_f32():
+            in_memory()                        # warm-up
+            ref, s_mem, peak_mem = _peak_after(in_memory)
+            t = time.perf_counter()
+            ref = _to_host(ref)
+            fetch_s = time.perf_counter() - t
+            streamed()                         # warm-up
+            got, s_str, peak_str = _peak_after(streamed)
+        assert got.shape == ref.shape == (512, 512, 512, 1)
+        assert got.dtype == np.float32 and bool(np.isfinite(got).all())
+        diff = np.abs(got - ref)
+        err = float(diff.max())
+        assert err <= tol, (dtype, err)
+        res[f"512_{dtype}"] = {
+            "in_memory_ms": s_mem * 1e3, "in_memory_fetch_ms": fetch_s * 1e3,
+            "in_memory_peak_bytes": peak_mem, "streamed_ms": s_str * 1e3,
+            "streamed_peak_bytes": peak_str, "max_abs_err": err,
+            "tolerance": tol, "share_differing": float((diff > 0).mean())}
+        del ref, got, diff
+    lr = torch.from_numpy(np.random.default_rng(3).random(
+        (256, 256, 256, 4), dtype=np.float32)).to(dev)
+    _, g1, g2 = load_chain("bfloat16", dev)
+    with torch.inference_mode():
+        big, s_big, peak_big = _peak_after(
+            lambda: assemble.upscale_volume_streamed(g1, g2, lr, 4,
+                                                     chunk=chunk,
+                                                     chunk1=chunk))
+    assert big.shape == (1024, 1024, 1024, 1)
+    assert bool(np.isfinite(big[::7, ::7, ::7]).all())
+    del big
+    res["1024_bfloat16"] = {"streamed_ms": s_big * 1e3,
+                            "streamed_peak_bytes": peak_big}
+    print("   streamed " + json.dumps(res), flush=True)
+    done(t0)
+    return res
+
+
+def phase_recover(dev, wk):
+    from mpgan_torch import cli
+    from mpgan_torch.train import checkpoint as ckpt
+
+    t0 = phase("11 fault recovery: out 0 with MPGAN_FAIL_ONCE/HANG_ONCE")
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        smooth_dataset(os.path.join(d, "data"), n_sims=1)
+        data = f"basePath {d}/data/ fromSim 1000 toSim 1000 frameMax 4 "
+        # float32 at the recipe's learning rates, with ganLoss sce and
+        # adamEps 1, where two uninterrupted runs of these 4 steps agree on
+        # the card (the gap is reported). With 8b's hinge and lrgan 1 they
+        # do not agree within 1e-4: the card's atomics reorder float sums,
+        # and the hinge's kink and G's unit step turn that noise into
+        # discrete changes; Adam's default eps makes a first step of ±lr
+        # that flips on noise
+        f32 = (data + "out 0 " + CLI_RECIPE.replace("ganLoss hinge",
+                                                    "ganLoss sce")
+               + " dtype float32 adamEps 1 trainingIters 4 "
+               "saveInterval 2 outputInterval 4 ")
+        sentinel = os.path.join(d, "fail_once")
+
+        # (a) in process: crash after the first checkpoint, resumeLatest
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t = time.perf_counter()
+        wk.launches = wk.bwd_launches = 0                  # path starts
+        os.environ["MPGAN_FAIL_ONCE"] = sentinel
+        try:
+            cli.main((f32 + f"testPath {d}/a/").split())
+            raise AssertionError("MPGAN_FAIL_ONCE did not fire")
+        except RuntimeError as e:
+            assert "MPGAN_FAIL_ONCE" in str(e), e
+        finally:
+            del os.environ["MPGAN_FAIL_ONCE"]
+        crashed = (wk.launches, wk.bwd_launches)
+        cli.main((f32 + f"testPath {d}/a/ resumeLatest 1").split())
+        torch.cuda.synchronize()
+        launches = (wk.launches, wk.bwd_launches)          # path ends
+        res["a_s"] = time.perf_counter() - t
+        assert crashed == (3 * 2, 2) and launches == (3 * 4, 4), (crashed,
+                                                                 launches)
+        # two uninterrupted runs: the reference and the card's own spread
+        for name in ("plain", "plain2"):
+            cli.main((f32 + f"testPath {d}/{name}/").split())
+        got, want, again = (ckpt.restore(ckpt.run_dir(f"{d}/{name}", 0), 2,
+                                         "cpu")
+                            for name in ("a", "plain", "plain2"))
+        assert got[1] == want[1] and got[1]["it"] == 4, (got[1], want[1])
+        gap = _state_gap(_state_tensors(got[0]), _state_tensors(want[0]))
+        spread = _state_gap(_state_tensors(again[0]),
+                            _state_tensors(want[0]))
+        assert gap <= 1e-4, (gap, spread)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        res.update(warp_launches=launches[0], warp_bwd_launches=launches[1],
+                   steps=4, resumed_vs_uninterrupted_max_abs_gap=gap,
+                   uninterrupted_repeat_max_abs_gap=spread)
+
+        # (b) as a user runs it: a supervised child crashes, then hangs
+        env = dict(os.environ, MPGAN_RETRY_DELAY_S="0",
+                   MPGAN_STARTUP_GRACE_S="60",
+                   PYTHONPATH=os.pathsep.join(
+                       [ROOT] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        bf16 = data + "out 0 " + CLI_RECIPE + " trainingIters 4 saveInterval 2"
+        for kind, var, extra in (("crash", "MPGAN_FAIL_ONCE", ""),
+                                 ("hang", "MPGAN_HANG_ONCE", " hangTimeout 5")):
+            runs = os.path.join(d, kind)
+            flag = os.path.join(d, f"{kind}_once")
+            t = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "mpgan_torch.cli"]
+                + (bf16 + f" testPath {runs}/ retryOnError 1" + extra).split(),
+                capture_output=True, text=True, env=dict(env, **{var: flag}),
+                timeout=300)
+            res[f"b_{kind}_s"] = time.perf_counter() - t
+            assert r.returncode == 0, (r.stdout[-3000:], r.stderr[-3000:])
+            assert os.path.exists(flag), kind
+            assert "retryOnError: training child died" in r.stdout, kind
+            assert "resumeIndex 0: resuming model_0001" in r.stdout, kind
+            if kind == "hang":
+                assert "; killing it" in r.stdout
+            meta = ckpt.read_json(ckpt.model_dir(ckpt.run_dir(runs, 0), 2)
+                                  + ".json")
+            assert meta["it"] == 4 and meta["total_iters"] == 4, meta
+    print("   recover " + json.dumps(res), flush=True)
+    done(t0)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke run needs "
@@ -914,12 +1152,15 @@ def main():
 
     warp_err, times = phase_warp(dev, wk)
     single_launches, single_err = phase_single_path(dev, wk)
-    bundled_lr, quality = phase_bundled(dev)
+    bundled_lr, bundled_quality = phase_bundled(dev)
     bench = phase_bench(dev)
     phase_serve(dev, bundled_lr)
     align_launches, align_err = phase_align(dev, wk)
     train = phase_train(dev, wk)
     cli_res = phase_cli(dev, wk)
+    quality = phase_quality(dev)
+    streamed = phase_streamed(dev)
+    recover = phase_recover(dev, wk)
 
     # launches: each kernel's count on the path that runs it, the train
     # step (7b) for the triplet kernels, advect_2d_fast (2b) for the
@@ -947,13 +1188,17 @@ def main():
     kernels[2].update(launches_per_train_step=train["warp_launches_per_step"],
                       launches_align=align_launches,
                       launches_pass2=train["pass2"]["warp_launches"],
-                      launches_pass3_cli=cli_res["pass3"]["warp_launches"])
+                      launches_pass3_cli=cli_res["pass3"]["warp_launches"],
+                      launches_recovery=recover["warp_launches"])
     kernels[3].update(
         launches_per_train_step=train["warp_bwd_launches_per_step"],
         launches_pass2=train["pass2"]["warp_bwd_launches"],
-        launches_pass3_cli=cli_res["pass3"]["warp_bwd_launches"])
+        launches_pass3_cli=cli_res["pass3"]["warp_bwd_launches"],
+        launches_recovery=recover["warp_bwd_launches"])
     print(json.dumps({"kernels": kernels, "main_path": bench,
-                      "bundled": quality, "train": train, "cli": cli_res}),
+                      "bundled": bundled_quality, "train": train,
+                      "cli": cli_res, "quality": quality,
+                      "streamed": streamed, "recover": recover}),
           flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

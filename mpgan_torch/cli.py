@@ -12,14 +12,22 @@ Inference (checkpoints → full 3D volumes as ``.uni``)::
     python -m mpgan_torch.cli out 1 basePath data/ fromSim 1000 toSim 1000 \\
         load_model_test 0 load_model_test2 1 outFrameMin 0 outFrameMax 20
 
+Unattended runs: with ``retryOnError N`` a supervising parent runs the
+work as a child (``python -m mpgan_torch.cli`` with the same flags) and
+restarts it up to N times when it dies, training with ``resumeIndex`` of
+the run dir it owned (``resumeLatest 1`` if it died before allocating
+one) and inference into a pinned ``writeTest`` dir that skips the frames
+already written. ``hangTimeout S`` also kills a child whose heartbeat has
+been silent for S seconds (:mod:`mpgan_torch.utils.supervise`). The parent
+never touches the card.
+
 Flags take the reference's names (:func:`mpgan_torch.config.from_cli` and
 those read in :func:`main`); an unknown flag aborts. ``device`` (``cuda``
-by default) is the only way to the CPU. Flags of pieces not ported yet are
-refused by name: ``retryOnError`` and ``hangTimeout`` (the supervisor),
-``coordinator``, ``numProcesses`` and ``processId`` (multi-host).
-``pipelineSplit`` is parsed and, as in the JAX package on one device, has
-no effect; ``compileCache`` names a JAX compile cache and has no effect
-here.
+by default) is the only way to the CPU. The multi-host flags
+``coordinator``, ``numProcesses`` and ``processId`` are refused by name
+until the parallelism slice. ``pipelineSplit`` is parsed and, as in the
+JAX package on one device, has no effect; ``compileCache`` names a JAX
+compile cache and has no effect here.
 
 The run-dir layout is :mod:`mpgan_torch.train.checkpoint`'s.
 """
@@ -27,7 +35,9 @@ The run-dir layout is :mod:`mpgan_torch.train.checkpoint`'s.
 from __future__ import annotations
 
 import os
+import re
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -37,12 +47,11 @@ from mpgan_torch import convert
 from mpgan_torch.device import resolve_device
 from mpgan_torch.train import checkpoint as ckpt
 from mpgan_torch.utils import params as ph
+from mpgan_torch.utils.liveness import touch_heartbeat
 
 # flag → what it belongs to, for the pieces not ported yet; each is refused
 # unless it holds its "off" value
-_NOT_PORTED = {"retryOnError": "the retryOnError/hangTimeout supervisor",
-               "hangTimeout": "the retryOnError/hangTimeout supervisor",
-               "coordinator": "multi-host training",
+_NOT_PORTED = {"coordinator": "multi-host training",
                "numProcesses": "multi-host training",
                "processId": "multi-host training"}
 _OFF = {"", "0", "0.0", "-1"}
@@ -51,6 +60,26 @@ _OFF = {"", "0", "0.0", "-1"}
 def main(argv: list[str] | None = None) -> None:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     ph.setParams(argv)
+    # read here, so that the child's checkUnusedParams sees them consumed;
+    # hangTimeout alone (retryOnError 0) arms the watchdog without restarts
+    retry_budget = int(ph.getParam("retryOnError", 0))
+    hang_timeout = float(ph.getParam("hangTimeout", 0))
+    if ((retry_budget > 0 or hang_timeout > 0)
+            and not os.environ.get("MPGAN_TRAIN_CHILD")):
+        if ph.getParam("coordinator", "") or int(ph.getParam("numProcesses",
+                                                             0)):
+            sys.exit(
+                "retryOnError/hangTimeout do not support multi-host "
+                "(coordinator/numProcesses) jobs: per-host supervisors would "
+                "race run-dir allocation and restart one host's process into "
+                "a distributed job whose peers are blocked in the old run's "
+                "collectives. Supervise and relaunch the whole job "
+                "externally instead.")
+        # out 2 is inference too (bool(out), as config reads it)
+        sys.exit(_supervise(
+            argv, max(retry_budget, 0), hang_timeout,
+            infer=bool(int(ph.getParam("out", ph.getParam("outputOnly",
+                                                          0))))))
     for flag, what in _NOT_PORTED.items():
         if ph.hasParam(flag) and ph.getParam(flag, "") not in _OFF:
             sys.exit(f"{flag}: {what} is not ported to mpgan_torch yet")
@@ -151,6 +180,132 @@ def main(argv: list[str] | None = None) -> None:
                  warm_test, warm_no, train_pass, pass3_source, load_test2,
                  load_no2, resume_total=resume_total,
                  run_override=run_override)
+
+
+def _strip_flag(argv: list[str], name: str) -> list[str]:
+    """Remove ``name <value>`` pairs from a reference-style flag list
+    (case-insensitive, as ``getParam`` reads flags)."""
+    out, skip = [], False
+    for tok in argv:
+        if skip:
+            skip = False
+            continue
+        if tok.lower() == name.lower():
+            skip = True
+            continue
+        out.append(tok)
+    return out
+
+
+def _has_flag(argv: list[str], name: str) -> bool:
+    """True if the flag appears in argv (case-insensitive)."""
+    return any(tok.lower() == name.lower() for tok in argv)
+
+
+def _next_run_index(test_path: str, create: bool = False) -> int:
+    """The next free ``test_%04d`` index under ``test_path``; ``create``
+    reserves its dir (inference pinning), training leaves that to the
+    child."""
+    os.makedirs(test_path, exist_ok=True)
+    newest = ckpt.latest_run_idx(test_path)
+    idx = 0 if newest is None else newest + 1
+    if create:
+        os.makedirs(ckpt.run_dir(test_path, idx))
+    return idx
+
+
+def _owned_run_index(run_file: str | None) -> int | None:
+    """The ``test_%04d`` index a training child reported owning through
+    ``MPGAN_RUN_FILE`` (None when it died before allocating one)."""
+    if not run_file or not os.path.exists(run_file):
+        return None
+    try:
+        with open(run_file) as f:
+            base = os.path.basename(f.read().strip())
+    except OSError:
+        return None
+    m = re.fullmatch(r"test_(\d{4})", base)
+    return int(m.group(1)) if m else None
+
+
+def _supervise(argv: list[str], retries: int, hang_timeout: float = 0.0,
+               infer: bool = False) -> int:
+    """Restart a dead or hung child up to ``retries`` times (JAX
+    ``scripts/multipass_gan.py:240-327``) → the last exit code (0 on a
+    clean finish).
+
+    A training child restarts on exactly the run dir it reported owning
+    (``MPGAN_RUN_FILE``: ``resumeIndex`` of that dir), or, when it died
+    before allocating one, with ``resumeLatest 1`` scoped by
+    ``MPGAN_RESUME_MIN`` to run dirs this launch creates, so that an older
+    run under the same testPath never hijacks recovery. An inference child
+    writes into a ``writeTest`` dir pinned here and skips the frames
+    already written. ``hang_timeout`` > 0 also kills a child whose
+    heartbeat is stale that long.
+    """
+    from mpgan_torch.utils import supervise
+
+    env = dict(os.environ, MPGAN_TRAIN_CHILD="1")
+    # the child imports this package from where the parent found it
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    delay = float(os.environ.get("MPGAN_RETRY_DELAY_S", "30"))
+    base_argv = list(argv)
+    test_path = ph.getParam("testPath", "test_out/")
+    if infer and not _has_flag(base_argv, "writeTest"):
+        idx = _next_run_index(test_path, create=True)
+        base_argv += ["writeTest", str(idx)]
+        print(f"retryOnError: inference outputs pinned to test_{idx:04d} "
+              f"(writeTest {idx})", flush=True)
+    resume_min = None if infer else _next_run_index(test_path)
+    run_file = None
+    if not infer:
+        run_file = os.path.join(test_path, f".rundir_{os.getpid()}")
+        env["MPGAN_RUN_FILE"] = run_file
+    heartbeat = None
+    if hang_timeout > 0:
+        os.makedirs(test_path, exist_ok=True)
+        heartbeat = os.path.join(test_path, f".heartbeat_{os.getpid()}")
+        env["MPGAN_HEARTBEAT"] = heartbeat
+    failures = 0
+    try:
+        while True:
+            args = list(base_argv)
+            attempt_env = dict(env)
+            if failures and not infer:
+                owned = _owned_run_index(run_file)
+                if owned is not None:
+                    args = (_strip_flag(_strip_flag(args, "resumeLatest"),
+                                        "resumeIndex")
+                            + ["resumeIndex", str(owned)])
+                else:
+                    args = (_strip_flag(args, "resumeLatest")
+                            + ["resumeLatest", "1"])
+                    attempt_env["MPGAN_RESUME_MIN"] = str(resume_min)
+            cmd = [sys.executable, "-m", "mpgan_torch.cli"] + args
+            if heartbeat:
+                rc = supervise.run_child_watched(cmd, attempt_env,
+                                                 hang_timeout, heartbeat)
+            else:
+                rc = supervise.run_child(cmd, attempt_env)
+            if rc == 0:
+                return 0
+            failures += 1
+            if failures > retries:
+                print(f"retryOnError: giving up after {failures} failures "
+                      f"(last rc={rc})", flush=True)
+                return rc
+            kind = "inference" if infer else "training"
+            how = "skipping done frames" if infer else "resuming its run dir"
+            print(f"retryOnError: {kind} child died (rc={rc}); restarting "
+                  f"{how} in {delay:g}s [{failures}/{retries}]", flush=True)
+            time.sleep(delay)
+    finally:
+        if heartbeat and os.path.exists(heartbeat):
+            os.remove(heartbeat)
+        if run_file and os.path.exists(run_file):
+            os.remove(run_file)
 
 
 def _preview_batch(tc, pass_no: int, rng: torch.Generator):
@@ -315,7 +470,9 @@ def run_inference(cfg, dev: torch.device, load_test2: int, load_no2: int,
     frame f+1 is read in a reader thread while the card upscales frame f,
     and the atomic ``.uni``/PNG writes drain through a writer thread. With
     ``writeTest k`` the sweep writes into ``test_k`` and skips frames whose
-    outputs all exist. → the output run dir."""
+    outputs all exist. Each written frame touches the heartbeat;
+    ``MPGAN_FAIL_ONCE`` crashes the sweep once, after its first frame is
+    written. → the output run dir."""
     from mpgan_torch.infer.load import (load_pass_chain,
                                         make_default_upscaler, read_lr_frame)
     from mpgan_torch.io import uni
@@ -374,8 +531,18 @@ def run_inference(cfg, dev: torch.device, load_test2: int, load_no2: int,
             while len(pending) >= 3:
                 pending.pop(0).result()
             pending.append(writer.submit(write_frame, out, hr))
+            touch_heartbeat()
             print(f"sim {sim} frame {f}: {lr_np.shape[:3]} -> "
                   f"{hr.shape[:3]} -> {out}")
+            # fault injection for recovery tests: crash once, after the
+            # first frame is durably written
+            fail_once = os.environ.get("MPGAN_FAIL_ONCE")
+            if fail_once and not os.path.exists(fail_once):
+                pending[-1].result()
+                with open(fail_once, "w") as fh:
+                    fh.write(f"injected at sim {sim} frame {f}\n")
+                raise RuntimeError(f"MPGAN_FAIL_ONCE: injected fault after "
+                                   f"writing sim {sim} frame {f}")
         for p in pending:
             p.result()
     print(f"inference outputs in {out_dir}")

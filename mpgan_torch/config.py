@@ -3,8 +3,7 @@
 A copy of the dataclasses and flags of ``mpgan_tpu/config.py`` that the
 port reads — data, model, losses and training — with the same flag names
 and defaults. The port imports nothing of the JAX package, so it keeps its
-own copy. Flags of what the port does not run yet (``profileDir``,
-``debugNans``) are parsed and stored; an unknown flag aborts.
+own copy. An unknown flag aborts.
 """
 
 from __future__ import annotations
@@ -96,8 +95,8 @@ class TrainConfig:
     # steps per device dispatch in the JAX package; the port runs one step
     # per Python iteration whatever the value
     steps_per_dispatch: int = 0
-    profile_dir: str = ""           # parsed; not ported yet
-    debug_nans: bool = False        # parsed; not ported yet
+    profile_dir: str = ""           # torch.profiler trace of fit, "" = off
+    debug_nans: bool = False        # raise at the first non-finite update
 
 
 @dataclass

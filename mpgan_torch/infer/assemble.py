@@ -13,14 +13,16 @@ Channel layouts match the training pipeline: xy slices use [d, vx, vy, vz],
 xz slices [d, vx, vz, vy], yz slices [d, vz, vy, vx]. Generators are
 :class:`mpgan_torch.models.generator.Generator` modules that own their
 parameters. :func:`precompute_intermediates` and :func:`precompute_finals`
-sweep a dataset for pass-2 and pass-3 training. The host-streamed assembly
-and the mesh wait for later slices.
+sweep a dataset for pass-2 and pass-3 training, and
+:func:`upscale_volume_streamed` assembles pass 2 in host memory. The mesh
+waits for the parallelism slice.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mpgan_torch.ops.upsample import resize_volume
 
@@ -106,6 +108,94 @@ def upscale_volume(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
     if gen3 is not None:
         out = pass3_volume(gen3, out, lr_vel, chunk=chunk)
     return out
+
+
+def _velocity_rows(lr_vel: torch.Tensor, y0: int, rows: int, up: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """Rows [y0, y0 + rows) of ``resize_volume(lr_vel, (Z, Y·s, X·s))``,
+    from a window of LR rows only.
+
+    A resize of an LR sub-block clamps at the sub-block's own edges, so the
+    window takes one LR row of margin on each side (clamped at the volume's
+    edges, as the full resize is); ``scale_factor=s`` with
+    ``recompute_scale_factor=False`` makes each output row's source
+    coordinate ``(j + 0.5)/s − 0.5`` with the full resize's 1/s, so the
+    window's rows are the full resize's rows.
+    """
+    y = lr_vel.shape[1]
+    lo = max(y0 // up - 1, 0)
+    hi = min((y0 + rows - 1) // up + 2, y)
+    win = F.interpolate(lr_vel[:, lo:hi].to(dtype).permute(0, 3, 1, 2),
+                        scale_factor=(up, up),
+                        mode="bilinear", align_corners=False,
+                        recompute_scale_factor=False)
+    start = y0 - lo * up
+    return win[:, :, start:start + rows].permute(0, 2, 3, 1)
+
+
+def upscale_volume_streamed(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
+                            chunk: int, stage: int | None = None,
+                            chunk1: int | None = None) -> np.ndarray:
+    """Two-pass SR whose output never lies in device memory (JAX
+    ``:145-216``): output volumes larger than the card become possible.
+
+    Pass 1 runs on ``lr_vol``'s device in slice chunks of ``chunk1``
+    (default ``chunk``); its intermediate (Z, Y·s, X·s, 1) is s× smaller
+    than the output and must fit. Pass 2 then runs ``chunk`` xz slices
+    (rows of Y·s) at a time, each with its exact velocity window
+    (:func:`_velocity_rows`), and each chunk's output goes into a
+    preallocated float32 host array. On a card, chunk k is copied to one of
+    two pinned host buffers on a second stream while chunk k+1 computes;
+    the host then widens it into the array. The result equals a synchronous
+    copy's. → (Z·s, Y·s, X·s, 1) float32 numpy.
+    """
+    interm = pass1_volume(gen1, lr_vol, stage=stage,
+                          chunk=chunk if chunk1 is None else chunk1)
+    z, y, x, c = lr_vol.shape
+    zs, ys, xs = z * up_res, y * up_res, x * up_res
+    lr_vel = lr_vol[..., 1:4] if c >= 4 else None
+    dt = gen2.dtype
+    dev = interm.device
+    final = np.empty((zs, ys, xs, 1), np.float32)
+    final_t = torch.from_numpy(final)
+    on_card = dev.type == "cuda"
+    copy_stream = torch.cuda.Stream(dev) if on_card else None
+    host_bufs = []     # two host buffers, pinned on a card
+    pending = None     # (y0, rows, buffer, copy-done event) of chunk k − 1
+
+    def drain(p):
+        p_y0, p_rows, buf, done = p
+        if done is not None:
+            done.synchronize()
+        final_t[:, p_y0:p_y0 + p_rows].copy_(buf[:p_rows].transpose(0, 1))
+
+    for k, y0 in enumerate(range(0, ys, chunk)):
+        rows = min(chunk, ys - y0)
+        slices = interm[:, y0:y0 + rows].to(dt).transpose(0, 1)
+        if lr_vel is not None:
+            vel = _velocity_rows(lr_vel, y0, rows, up_res, dt)
+            slices = torch.cat([slices, vel[..., [0, 2, 1]].transpose(0, 1)],
+                               dim=-1)
+        out = gen2(slices, stage=stage)                  # (rows, Zs, Xs, 1)
+        if len(host_bufs) < 2:
+            host_bufs.append(torch.empty((min(chunk, ys), *out.shape[1:]),
+                                         dtype=out.dtype, pin_memory=on_card))
+        buf = host_bufs[k % 2]
+        done = None
+        if on_card:
+            copy_stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(copy_stream):
+                buf[:rows].copy_(out, non_blocking=True)
+                out.record_stream(copy_stream)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+        else:
+            buf[:rows].copy_(out)
+        if pending is not None:
+            drain(pending)
+        pending = (y0, rows, buf, done)
+    drain(pending)
+    return final
 
 
 def _sweep(one, lr_vols: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,32 @@ def bundled_weights(name: str) -> str:
     return os.path.join(WEIGHTS_DIR, f"{name}.npz")
 
 
+def bundled_names() -> list[str]:
+    """Every generator shipped with the package: the exports of the 22
+    bundles of ``examples/checkpoints``."""
+    return sorted(n[:-4] for n in os.listdir(WEIGHTS_DIR)
+                  if n.endswith(".npz"))
+
+
+def load_bundled(name: str, dtype: str = "float32",
+                 device=None) -> G.Generator:
+    """A shipped generator by name (``g1_l1_4x``, ``g2_gan8``, ``g3_l18``,
+    …), built as every bundle was trained (base 32, 2 res blocks) at the
+    pass and factor its sidecar records: 2 stages at 4×, 3 at 8×."""
+    from mpgan_torch.config import Config
+
+    path = bundled_weights(name)
+    meta = ckpt.read_json(convert.sidecar_path(path))
+    if meta is None:
+        raise FileNotFoundError(f"no shipped generator {name!r} "
+                                f"(have {bundled_names()})")
+    cfg = Config()
+    cfg.data.up_res = int(meta["up_res"])          # 4 or 8
+    cfg.model.stages = cfg.data.up_res.bit_length() - 1
+    cfg.model.dtype = dtype
+    return load_generator_npz(path, int(meta["pass_no"]), cfg, device)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 

@@ -33,12 +33,26 @@ A batch is a dict of NHWC tensors with the JAX pipeline's keys: ``lr``,
 
 :meth:`Trainer.save` and :meth:`Trainer.restore` write and read the full
 train state (:mod:`mpgan_torch.train.checkpoint`); ``fit`` calls
-``on_checkpoint`` every ``saveInterval`` iterations, and its sampling
-stream is a function of ``(randSeed, start_it)``, so a resume is
-deterministic.
+``on_checkpoint`` every ``saveInterval`` iterations. The sampling stream
+of iteration ``it`` is seeded from ``(randSeed, it)``, so a run resumed
+from a checkpoint draws the batches an uninterrupted run draws and ends in
+its state.
 
-Not ported yet: sharded residency and data parallelism, heartbeats and
-fault injection, ``profileDir``, ``debugNans``.
+For unattended runs ``fit`` touches the supervisor's heartbeat
+(:mod:`mpgan_torch.utils.liveness`) after every step, after every
+checkpoint and at the end, and after its first checkpoint crashes
+(``MPGAN_FAIL_ONCE``) or hangs (``MPGAN_HANG_ONCE``) once when asked to,
+each leaving a sentinel file so that the restarted run goes through.
+``profileDir`` traces ``fit`` with ``torch.profiler`` into that directory.
+``debugNans`` checks every loss and gradient before its optimizer step and
+raises ``FloatingPointError`` naming the update and the step at the first
+non-finite value. That is coarser than JAX's ``jax_debug_nans``, which
+re-runs the failing computation op by op and names the primitive that
+made the NaN: here the first update whose loss or gradient is not finite
+is named, and NaNs that stay inside a forward pass without reaching a
+loss or gradient go unseen.
+
+Not ported yet: sharded residency and data parallelism.
 """
 
 from __future__ import annotations
@@ -63,6 +77,7 @@ from mpgan_torch.models import growing
 from mpgan_torch.ops import warp_kernel
 from mpgan_torch.train import checkpoint as ckpt
 from mpgan_torch.train import losses
+from mpgan_torch.utils.liveness import touch_heartbeat
 
 _PASS_INPUT_KEY = {1: "lr", 2: "interm", 3: "final"}
 
@@ -167,15 +182,24 @@ def _load_opt(opt: torch.optim.Optimizer, sd: dict) -> None:
 
 
 def _update(opt: torch.optim.Optimizer, params: list[torch.Tensor],
-            loss: torch.Tensor) -> None:
+            loss: torch.Tensor, nan_check: str | None = None) -> None:
     """Backward into ``params`` only, then one optimizer step. A parameter
-    the loss does not reach gets a zero gradient (optax updates it too)."""
+    the loss does not reach gets a zero gradient (optax updates it too).
+    With ``nan_check`` (a name for the update), a non-finite loss or
+    gradient raises ``FloatingPointError`` before the step."""
     for p in params:
         p.grad = None
     loss.backward(inputs=params)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if nan_check is not None:
+        finite = torch.stack([torch.isfinite(loss).all()] + [
+            torch.isfinite(p.grad).all() for p in params]).all()
+        if not bool(finite):
+            raise FloatingPointError(
+                f"debugNans: non-finite loss or gradient in {nan_check} "
+                f"(loss {float(loss.detach())})")
     opt.step()
 
 
@@ -262,6 +286,10 @@ class TrainStep:
                 out[k] = D.downsample_nhwc(b[k], fh, fw)
         return out
 
+    def _nan_check(self, what: str) -> str | None:
+        return (f"the {what} update at step {self.rt.step}"
+                if self.cfg.train.debug_nans else None)
+
     def _gen(self, x, alpha):
         return self.rt.gen(x, stage=self.stage, alpha=alpha, fade=self.fade)
 
@@ -269,8 +297,8 @@ class TrainStep:
         return losses.align_triplet(prev, cur, nxt, vel, self.use_kernel,
                                     self.cfg.loss.warp_max_disp)
 
-    def _d_update(self, net, opt, params, real, fake, alpha,
-                  rng) -> torch.Tensor:
+    def _d_update(self, net, opt, params, real, fake, alpha, rng,
+                  what: str) -> torch.Tensor:
         """One update of a discriminator on real and fake inputs (scored as
         one batch): adversarial loss, lazy R1 and WGAN-GP."""
         lcfg = self.cfg.loss
@@ -291,7 +319,7 @@ class TrainStep:
                              device=real.device)
             loss = loss + lcfg.gp_weight * losses.gradient_penalty(
                 disc, real, fake, eps)
-        _update(opt, params, loss)
+        _update(opt, params, loss, self._nan_check(what))
         return loss.detach()
 
     def _d_run(self, rng, alpha):
@@ -311,11 +339,11 @@ class TrainStep:
             real_in = D.condition_ds_input(x_in, b["hr"], *self.cond_f)
             fake_in = D.condition_ds_input(x_in, fake, *self.cond_f)
         loss_ds = self._d_update(rt.ds, rt.opt_ds, self.ds_params, real_in,
-                                 fake_in, alpha, rng)
+                                 fake_in, alpha, rng, "Ds")
         loss_dt = 0.0
         if self.temporal:
             loss_dt = self._d_update(rt.dt, rt.opt_dt, self.dt_params,
-                                     trip_real, trip_fake, alpha, rng)
+                                     trip_real, trip_fake, alpha, rng, "Dt")
         return loss_ds, loss_dt
 
     def _g_run(self, rng, alpha):
@@ -355,7 +383,7 @@ class TrainStep:
                      + lcfg.lambda_f * l_f + lcfg.lambda_t * l_t)
             aux.update(g_adv=l_adv.detach(), feat=l_f.detach(),
                        g_t=l_t.detach() if self.temporal else 0.0)
-        _update(rt.opt_g, self.g_params, total)
+        _update(rt.opt_g, self.g_params, total, self._nan_check("G"))
         return total.detach(), aux
 
     # ---------------------------------------------------------------- step
@@ -396,10 +424,11 @@ def read_metrics(metrics: dict) -> dict[str, float]:
     return {k: out[k] for k in metrics}
 
 
-def _step_seed(seed: int, start_it: int) -> int:
-    """The sampling stream's seed: a function of the run seed and the first
-    iteration, so that a run started at ``start_it`` is reproducible."""
-    return int(np.random.SeedSequence([seed, start_it]).generate_state(
+def _step_seed(seed: int, it: int) -> int:
+    """The seed of iteration ``it``'s sampling stream: a function of the
+    run seed and the iteration alone, so that a resume draws what an
+    uninterrupted run draws."""
+    return int(np.random.SeedSequence([seed, it]).generate_state(
         1, np.uint64)[0])
 
 
@@ -602,9 +631,18 @@ class Trainer:
         log_every = log_every or cfg.train.output_interval
         if log_every <= 0:  # outputInterval 0 = log only at the end
             log_every = max(iters, 1)
-        rng = torch.Generator(device=self.device).manual_seed(
-            _step_seed(cfg.train.rand_seed, start_it))
+        rng = torch.Generator(device=self.device)
         cur_stage = self.runtime(start_it).stage
+        prof = None
+        if cfg.train.profile_dir:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(
+                activities=acts,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    cfg.train.profile_dir))
+            prof.start()
         t_start = time.time()
         last: dict = {}
         it = start_it
@@ -618,8 +656,10 @@ class Trainer:
                 stage, alpha = self.n_stages, 1.0
             fade = alpha < 1.0 and stage > 1
             fn = self.rt.step_fade if fade else self.rt.step_stable
+            rng.manual_seed(_step_seed(cfg.train.rand_seed, it))
             metrics = fn(alpha, rng)
             it += 1
+            touch_heartbeat()
             if (it - 1) // log_every != it // log_every or it >= iters:
                 last = read_metrics(metrics)
                 last.update(it=it - 1, stage=stage, alpha=float(alpha),
@@ -631,7 +671,32 @@ class Trainer:
             if (on_checkpoint and save_every and it % save_every == 0
                     and it < iters):
                 on_checkpoint(self, it)
+                touch_heartbeat()  # a save is slow, and it is progress
+                _inject_fault_once(it)
+        if prof is not None:
+            prof.stop()
         if last:
             last["steps_per_sec"] = (it - start_it) / max(last["wall"], 1e-9)
             last["steps_per_dispatch"] = 1
+        touch_heartbeat()  # the watchdog's clock restarts for the final save
         return last
+
+
+def _inject_fault_once(it: int) -> None:
+    """Fault injection for recovery tests, after a checkpoint: with
+    ``MPGAN_FAIL_ONCE=<path>`` raise, with ``MPGAN_HANG_ONCE=<path>`` hang
+    (the silent-hang failure the watchdog exists for), each only while its
+    sentinel file is absent; the sentinel is written first, so that the
+    restarted run goes through. No effect unless a variable is set."""
+    fail_once = os.environ.get("MPGAN_FAIL_ONCE")
+    if fail_once and not os.path.exists(fail_once):
+        with open(fail_once, "w") as fh:
+            fh.write(f"injected at it={it}\n")
+        raise RuntimeError(f"MPGAN_FAIL_ONCE: injected fault after the "
+                           f"checkpoint at it={it}")
+    hang_once = os.environ.get("MPGAN_HANG_ONCE")
+    if hang_once and not os.path.exists(hang_once):
+        with open(hang_once, "w") as fh:
+            fh.write(f"hang injected at it={it}\n")
+        print(f"MPGAN_HANG_ONCE: hanging at it={it}", flush=True)
+        time.sleep(10 ** 9)

@@ -8,7 +8,8 @@ chain ``load_pass_chain`` loads; ``useEma`` falls back, ``writeTest``
 skips done frames; ``resumeIndex`` and ``resumeLatest`` find finished
 runs, ``resumeTest`` continues one and ``warmStartTest`` starts from its
 generator; ``pass2Source g1`` and ``trainPass 3 pass3Source model`` train, and
-a 3-pass ``out 1`` runs; unknown and unported flags abort. TensorBoard
+a 3-pass ``out 1`` runs; unknown flags, unported multi-host flags and the
+supervisor on a multi-host job abort. TensorBoard
 mirroring is switched off (its import costs seconds here).
 """
 
@@ -208,8 +209,11 @@ def test_pass2_g1_and_pass3_model_train_then_three_pass_out1(trained,
 
 @pytest.mark.parametrize("flags,match", [
     ("bogusFlag 1", None),
-    ("retryOnError 1", "retryOnError"),
-    ("hangTimeout 30", "hangTimeout"),
+    # the supervisor refuses multi-host jobs
+    pytest.param("retryOnError 1 numProcesses 2", "retryOnError",
+                 id="retryOnError 1-retryOnError"),
+    pytest.param("hangTimeout 30 coordinator localhost:1234", "hangTimeout",
+                 id="hangTimeout 30-hangTimeout"),
     ("coordinator localhost:1234", "coordinator"),
     ("numProcesses 2", "numProcesses"),
     ("pass2Source hr", "pass2Source"),

@@ -1,5 +1,6 @@
 """The port imports no JAX: a static (AST) scan of every module of
-``mpgan_torch/`` and of ``chip_smoke.py``.
+``mpgan_torch/`` and of ``chip_smoke.py``. And the supervising parent of
+``python -m mpgan_torch.cli ... retryOnError N`` never touches CUDA.
 
 Static because the interpreter that runs the tests may import jax at start
 (see tests/conftest.py), so ``sys.modules`` cannot tell who imported it.
@@ -52,3 +53,29 @@ def test_scan_sees_every_import_form(tmp_path):
                  "def f():\n    from mpgan_tpu.ops import warp\n")
     assert {m for m, _ in _imported_roots(str(p))} >= {
         "jax", "flax", "orbax", "mpgan_tpu"}
+
+
+def test_supervisor_gate_initialises_no_cuda(monkeypatch, tmp_path):
+    """Importing the supervisor and running the CLI's gate up to its child
+    (replaced by a stub) calls neither CUDA's lazy initialisation nor its
+    device query, and leaves ``torch.cuda.is_initialized()`` false."""
+    import torch
+
+    from mpgan_torch import cli
+    from mpgan_torch.utils import supervise
+
+    touched = []
+    monkeypatch.setattr(torch.cuda, "_lazy_init",
+                        lambda: touched.append("_lazy_init"))
+    monkeypatch.setattr(torch.cuda, "is_available",
+                        lambda: touched.append("is_available") or False)
+    children = []
+    monkeypatch.setattr(supervise, "run_child",
+                        lambda cmd, env: children.append(cmd) or 0)
+    monkeypatch.delenv("MPGAN_TRAIN_CHILD", raising=False)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["out", "0", "testPath", str(tmp_path), "retryOnError", "1",
+                  "trainingIters", "4"])
+    assert e.value.code == 0
+    assert children and children[0][1:3] == ["-m", "mpgan_torch.cli"]
+    assert touched == [] and not torch.cuda.is_initialized()

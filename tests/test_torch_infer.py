@@ -215,3 +215,59 @@ def test_resolve_device():
             resolve_device()
         with pytest.raises(RuntimeError):
             resolve_device("cuda:0")
+
+
+@pytest.mark.parametrize("chunk", [4, 5, 16, 40])   # divides Ys, does not, > Ys
+def test_upscale_volume_streamed_matches_jax_and_in_memory(chunk):
+    """The host-streamed assembly (pass 2 chunk by chunk, each chunk's
+    velocity window from LR rows with a margin) against JAX's
+    upscale_volume_streamed and the port's upscale_volume (atol 2e-6, as
+    tests/test_infer.py holds JAX's)."""
+    jg1, jg2 = JG.make_pass1(1, 8, 1), JG.make_pass2(1, 8, 1)
+    p1 = jg1.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 4)))
+    p2 = jg2.init(jax.random.PRNGKey(1), jnp.zeros((1, 8, 16, 4)))
+    t1 = _torch_gen(jg1, p1, TG.make_pass1(1, 8, 1))
+    t2 = _torch_gen(jg2, p2, TG.make_pass2(1, 8, 1))
+    lr = np.random.default_rng(7).random((6, 8, 10, 4), np.float32)
+    want = JA.upscale_volume_streamed(jg1, p1, jg2, p2, jnp.asarray(lr),
+                                      up_res=2, chunk=chunk)
+    with torch.no_grad():
+        ref = TA.upscale_volume(t1, t2, torch.from_numpy(lr), 2).numpy()
+        got = TA.upscale_volume_streamed(t1, t2, torch.from_numpy(lr), 2,
+                                         chunk=chunk, chunk1=3)
+    assert got.shape == want.shape == (12, 16, 20, 1)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+def test_upscale_volume_streamed_density_only_and_4x():
+    jg1, jg2 = JG.make_pass1(2, 8, 1), JG.make_pass2(2, 8, 1)
+    for c, seed in ((1, 3), (4, 4)):
+        p1 = jg1.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8, 8, c)))
+        p2 = jg2.init(jax.random.PRNGKey(seed + 1), jnp.zeros((1, 8, 32, c)))
+        t1 = _torch_gen(jg1, p1, TG.make_pass1(2, 8, 1, in_channels=c))
+        t2 = _torch_gen(jg2, p2, TG.make_pass2(2, 8, 1, in_channels=c))
+        lr = np.random.default_rng(seed).random((5, 7, 6, c), np.float32)
+        want = JA.upscale_volume_streamed(jg1, p1, jg2, p2, jnp.asarray(lr),
+                                          up_res=4, chunk=6)
+        with torch.no_grad():
+            ref = TA.upscale_volume(t1, t2, torch.from_numpy(lr), 4).numpy()
+            got = TA.upscale_volume_streamed(t1, t2, torch.from_numpy(lr), 4,
+                                             chunk=6)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6)
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+def test_streamed_velocity_window_equals_the_full_resize():
+    """Every row window of _velocity_rows is the full resize's rows, bit
+    for bit, at 2x, 4x and 8x."""
+    from mpgan_torch.ops.upsample import resize_volume
+    vel = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (3, 9, 5, 3)).astype(np.float32))
+    for up in (2, 4, 8):
+        full = resize_volume(vel, (3, 9 * up, 5 * up))
+        for y0, rows in ((0, 1), (0, 9 * up), (up - 1, up + 3),
+                         (3 * up + 1, 2 * up), (9 * up - 3, 3)):
+            win = TA._velocity_rows(vel, y0, rows, up, torch.float32)
+            assert torch.equal(win, full[:, y0:y0 + rows]), (up, y0, rows)

@@ -1,12 +1,16 @@
 """The port's Trainer on the CPU at a small size (LR tile 4, base 8,
 1 res block, disc base 8, B = 2, 2 sims × 4 frames of 8³ LR at 4×):
 growth across a stage boundary with fade, strict migration with the Dense
-head re-initialised, the warp call count per step, and the checks the JAX
-trainer makes. One test needs a card (marked ``cuda``; skips without one);
-this file imports no JAX, so on a card's machine run it with
+head re-initialised, the warp call count per step, the checks the JAX
+trainer makes, ``debugNans`` and ``profileDir``. One test needs a card
+(marked ``cuda``; skips without one); this file imports no JAX, so on a
+card's machine run it with
 ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_trainer.py -m cuda``.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -141,6 +145,27 @@ def test_training_is_reproducible_and_moves_the_ema():
     gap = max(float((tra.rt.ema[k] - p.detach()).abs().max())
               for k, p in tra.rt.gen.named_parameters())
     assert 0 < gap < 0.1
+
+
+def test_debug_nans_names_the_first_non_finite_update():
+    tr = tloop.Trainer(_config(debug_nans=True), _tc(), device="cpu")
+    tr.fit(2, log_every=1)                      # finite steps go through
+    with torch.no_grad():
+        next(tr.rt.gen.parameters()).fill_(float("nan"))
+    with pytest.raises(FloatingPointError,
+                       match=r"debugNans: .* in the Ds update at step 2"):
+        tr.fit(3, start_it=2)
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    out = tmp_path / "prof"
+    tr = tloop.Trainer(_config(profile_dir=str(out)), _tc(), device="cpu")
+    tr.fit(1)
+    traces = [f for f in os.listdir(out) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    with open(out / traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv" in e.get("name", "") for e in events)
 
 
 def test_fake_triplet_equals_separate_generator_calls():
