@@ -99,6 +99,30 @@ exit, and no result line:
             mpgan_torch.cli out 0 ... retryOnError 1` with MPGAN_FAIL_ONCE,
             then with `hangTimeout 5` and MPGAN_HANG_ONCE; each exits 0 with
             its final checkpoint in the run dir it owned
+11c repro   8b's float32 setting (hinge, lrgan 1, lrdisc 1e-2, TF32 off),
+            4 steps, run twice in each of four ways: as it is; with the
+            triplet backward kernel swapped for its plain version (the
+            autograd of align_triplet_ref under deterministic algorithms);
+            with cudnn.deterministic on and cudnn.benchmark off; with both.
+            Prints the largest parameter gap between the two runs of each
+            way. Reports, does not gate
+12 datagen  the data path on the card: (a) one solver step at 64³ with a
+            sphere obstacle and MacCormack, Jacobi and CG, on the card and
+            on the CPU from the same inputs (Jacobi 1e-5: no reduction, only
+            single-op rounding differs; CG 1e-4: its dot products sum in
+            another order), with the mean |divergence| over fluid cells
+            after the projection; (b) `python -m mpgan_torch.datagen` at
+            its defaults (resHigh 128, upRes 4, warmup 8), 6 frames per sim:
+            two plume sims (the second with an obstacle) in a child
+            process, then in process a varied sim with CG, a moving sim and
+            a dataDim 2 sim at 256²; per sim its seconds, steps/s and the
+            split of a frame between device time (CUDA events) and host
+            fetch + gzip write; one 256³ Jacobi and one CG step with peak
+            device memory; (c) the native .uni codec built; the loader on
+            the four 3D sims with it and with the pure-Python codec, equal
+            arrays, both timed; `out 0` for 4 pass-1 steps of the flagship
+            recipe on them: 3 forward and 1 backward warp launch per step
+            (counts reset just before, read just after)
 
 Then one JSON line listing every kernel (its launches on the path that
 runs it, its times at B=16 64², and under "large" at B=256 256²), the
@@ -1132,6 +1156,240 @@ def phase_recover(dev, wk):
     return res
 
 
+def _plain_triplet_bwd(wk):
+    """align_triplet_kernel_bwd's plain version: the autograd of
+    align_triplet_ref under deterministic algorithms, so that gather's
+    backward sums each gradient in a fixed order instead of with atomics."""
+    def bwd(g, prev, nxt, vel, max_disp=wk.DEFAULT_MAX_DISP,
+            field_grads=True, vel_grad=False):
+        p, n, v = (t.detach().requires_grad_() for t in (prev, nxt, vel))
+        torch.use_deterministic_algorithms(True)
+        try:
+            with torch.enable_grad():
+                out = wk.align_triplet_ref(p, torch.zeros_like(p), n, v,
+                                           max_disp)
+                d_p, d_n, d_v = torch.autograd.grad(out, (p, n, v), g)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return ((d_p, d_n) if field_grads else (None, None)) + (
+            d_v if vel_grad else None,)
+    return bwd
+
+
+def phase_repro(dev, wk):
+    from mpgan_torch import cli
+    from mpgan_torch.train import checkpoint as ckpt
+    from mpgan_torch.train import loop
+
+    t0 = phase("11c float32 reproducibility: 8b's setting run twice, 4 ways")
+    res = {}
+    kernel_bwd = wk.align_triplet_kernel_bwd
+    step_init = loop.TrainStep.__init__
+
+    def plain_bwd_step_init(self, *args, **kwargs):
+        step_init(self, *args, **kwargs)
+        self.warp_bwds_per_step = 0     # the step's own launch check
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as d:
+        smooth_dataset(os.path.join(d, "data"), n_sims=1)
+        f32 = (f"basePath {d}/data/ fromSim 1000 toSim 1000 frameMax 4 out 0 "
+               + CLI_RECIPE.replace("lrdisc 0.0004", "lrdisc 0.01")
+               + " dtype float32 lrgan 1 adamEps 1 trainingIters 4 "
+               "saveInterval 2 outputInterval 4 ")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for way in ("as_is", "plain_triplet_bwd", "cudnn_deterministic",
+                        "both"):
+                plain = way in ("plain_triplet_bwd", "both")
+                wk.align_triplet_kernel_bwd = (_plain_triplet_bwd(wk) if plain
+                                               else kernel_bwd)
+                loop.TrainStep.__init__ = (plain_bwd_step_init if plain
+                                           else step_init)
+                cudnn.deterministic = way in ("cudnn_deterministic", "both")
+                cudnn.benchmark = False if cudnn.deterministic else flags[1]
+                wk.launches = wk.bwd_launches = 0
+                for i in (0, 1):
+                    cli.main((f32 + f"testPath {d}/{way}{i}/").split())
+                torch.cuda.synchronize()
+                a, b = (_state_tensors(ckpt.restore(ckpt.run_dir(
+                    f"{d}/{way}{i}", 0), 2, "cpu")[0]) for i in (0, 1))
+                assert all(bool(torch.isfinite(t.float()).all())
+                           for t in a.values())
+                res[way] = {"repeat_max_abs_gap": _state_gap(a, b),
+                            "warp_launches": wk.launches,
+                            "warp_bwd_kernel_launches": wk.bwd_launches}
+        finally:
+            wk.align_triplet_kernel_bwd = kernel_bwd
+            loop.TrainStep.__init__ = step_init
+            cudnn.deterministic, cudnn.benchmark = flags
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+    print("   repro " + json.dumps(res), flush=True)
+    done(t0, **{k: v["repeat_max_abs_gap"] for k, v in res.items()})
+    return res
+
+
+def _smoke_inputs(n, seed, dev):
+    """A state at n³ with a sphere obstacle, an inflow sphere and a source,
+    made with numpy from ``seed`` and moved to ``dev``."""
+    from mpgan_torch.solver import smoke
+
+    rng = np.random.default_rng(seed)
+    solid = smoke.sphere_mask(n, n, n, (0.5, 0.55, 0.5), 0.12)
+    dens = torch.from_numpy(rng.random((n, n, n, 1), dtype=np.float32))
+    vel = torch.from_numpy((rng.standard_normal((n, n, n, 3)) * 0.5).astype(
+        np.float32))
+    inflow = smoke.sphere_mask(n, n, n, (0.5, 0.12, 0.5), 0.14) * (1 - solid)
+    src = torch.from_numpy(rng.random((n, n, n, 1), dtype=np.float32))
+    state = smoke.SmokeState(dens * (1 - solid), vel * (1 - solid), solid)
+    return (smoke.SmokeState(*(t.to(dev) for t in state)), src.to(dev),
+            inflow.to(dev))
+
+
+def _fluid_div(state):
+    from mpgan_torch.solver import smoke
+
+    fluid = 1.0 - state.solid
+    return float((smoke.divergence(state.velocity) * fluid).abs().sum()
+                 / fluid.sum())
+
+
+def phase_datagen(dev, wk, card):
+    from mpgan_torch import cli
+    from mpgan_torch import datagen as datagen_cli
+    from mpgan_torch.data import loader
+    from mpgan_torch.io import native
+    from mpgan_torch.solver import datagen, smoke
+
+    t0 = phase("12 datagen on the card -> native .uni codec -> loader -> "
+               "out 0")
+    res = {"card": card}
+    # (a) one step at 64^3 with an obstacle and MacCormack, card vs CPU.
+    # Jacobi has no reduction, so only the rounding of single ops differs;
+    # CG's dot products sum in another order on the card
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for solver, tol in (("jacobi", 1e-5), ("cg", 1e-4)):
+        params = smoke.SmokeParams(dt=0.5, buoyancy=2e-2, vorticity_eps=0.1,
+                                   jacobi_iters=50, cg_iters=60,
+                                   maccormack=True, pressure_solver=solver)
+        outs = []
+        for where in ("cpu", dev):
+            state, src, inflow = _smoke_inputs(64, 0, where)
+            outs.append(smoke.step(state, params, src, inflow))
+        err = gap([t.cpu() for t in outs[1]], outs[0])
+        res[f"a_{solver}"] = {"card_vs_cpu_max_abs_err": err,
+                              "tolerance": tol,
+                              "fluid_mean_abs_div_card": _fluid_div(outs[1]),
+                              "fluid_mean_abs_div_cpu": _fluid_div(outs[0])}
+        assert err <= tol, (solver, err)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    print("   12a " + json.dumps({k: v for k, v in res.items()
+                                  if k.startswith("a_")}), flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        base = os.path.join(d, "data")
+        frames = 6
+        common = f"basePath {base}/ frames {frames} randSeed 0"
+        # (b) datagen at its defaults (resHigh 128, upRes 4, warmup 8): two
+        # plume sims as a user runs it, the second with an obstacle
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "mpgan_torch.datagen", *(
+                common + " fromSim 1000 toSim 1001 obstacles 2").split()],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])))
+        assert r.returncode == 0, (r.stdout[-3000:], r.stderr[-3000:])
+        sims = [json.loads(line[len("datagen "):])
+                for line in r.stdout.splitlines()
+                if line.startswith("datagen ")]
+        res["b_subprocess_s"] = time.perf_counter() - t
+        sims += datagen_cli.main(
+            (common + " fromSim 1002 toSim 1002 scene varied "
+             "pressureSolver cg").split())
+        sims += datagen_cli.main(
+            (common + " fromSim 1003 toSim 1003 scene moving").split())
+        sims += datagen_cli.main(
+            (common + " fromSim 1004 toSim 1004 dataDim 2 resHigh 256")
+            .split())
+        assert [s["sim"] for s in sims] == [1000, 1001, 1002, 1003, 1004]
+        assert [s["obstacle"] for s in sims[:2]] == [False, True]
+        assert all(s["frames"] == frames for s in sims), sims
+        for s in sims:
+            print(f"   12b sim {s['sim']} " + json.dumps(s), flush=True)
+        res["b_sims"] = sims
+        # one 256^3 step of each solver on the plume scene, peak memory
+        for solver in ("jacobi", "cg"):
+            sc = datagen.make_scene(0, 256, "plume", True, solver, dev)
+            src = sc.inflow * 0.75
+            state = smoke.step(sc.state, sc.params, src, sc.inflow)  # warm-up
+            state, s, peak = _peak_after(
+                lambda: smoke.step(state, sc.params, src, sc.inflow))
+            assert bool(torch.isfinite(state.velocity).all())
+            res[f"b_256_{solver}"] = {"step_ms": s * 1e3, "peak_bytes": peak,
+                                      "fluid_mean_abs_div": _fluid_div(state)}
+            del sc, state, src
+        print("   12b 256^3 " + json.dumps({k: res[f"b_256_{k}"] for k in
+                                            ("jacobi", "cg")}), flush=True)
+
+        # (c) read back through the native codec and the pure-Python one,
+        # then train on the generated sims
+        assert native.available(), "the native .uni codec did not build"
+        lib = native.get_lib()
+
+        def load():
+            t = time.perf_counter()
+            ds = loader.FluidDataLoader(base, 1000, 1003, 0, frames).get()
+            return ds, time.perf_counter() - t
+        ds, native_s = load()
+        native._lib = False                  # as on a host without g++
+        try:
+            ds_py, python_s = load()
+        finally:
+            native._lib = lib
+        for k in ("lr", "hr"):
+            assert np.array_equal(getattr(ds, k), getattr(ds_py, k)), k
+        assert ds.lr.shape == (4 * frames, 32, 32, 32, 4)
+        assert ds.hr.shape == (4 * frames, 128, 128, 128, 1)
+        assert np.isfinite(ds.lr).all() and ds.hr.max() > 0.1
+        res["c_loader"] = {"native_s": native_s, "python_s": python_s,
+                           "speedup": python_s / native_s,
+                           "frames": 4 * frames,
+                           "bytes": int(ds.lr.nbytes + ds.hr.nbytes)}
+        steps = 4
+        wk.launches = wk.bwd_launches = 0                  # path starts
+        t = time.perf_counter()
+        cli.main((f"basePath {base}/ fromSim 1000 toSim 1003 frameMax "
+                  f"{frames} testPath {d}/runs/ out 0 {CLI_RECIPE} "
+                  f"trainingIters {steps} saveInterval {steps} "
+                  f"outputInterval {steps}").split())
+        torch.cuda.synchronize()
+        launches = (wk.launches, wk.bwd_launches)          # path ends
+        res["c_train_s"] = time.perf_counter() - t
+        assert launches == (3 * steps, steps), launches
+        last = _last_metrics(os.path.join(d, "runs", "test_0000"))
+        assert all(np.isfinite(last[k]) for k in TRAIN_METRICS), last
+        res["c_train"] = {"steps": steps, "warp_launches": launches[0],
+                          "warp_bwd_launches": launches[1],
+                          "metrics": {k: last[k] for k in TRAIN_METRICS}}
+    print("   12c " + json.dumps({k: v for k, v in res.items()
+                                  if k.startswith("c_")}), flush=True)
+    done(t0)
+    return res
+
+
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; the port's smoke run needs "
@@ -1161,6 +1419,8 @@ def main():
     quality = phase_quality(dev)
     streamed = phase_streamed(dev)
     recover = phase_recover(dev, wk)
+    repro = phase_repro(dev, wk)
+    datagen = phase_datagen(dev, wk, nvidia_smi())
 
     # launches: each kernel's count on the path that runs it, the train
     # step (7b) for the triplet kernels, advect_2d_fast (2b) for the
@@ -1189,21 +1449,21 @@ def main():
                       launches_align=align_launches,
                       launches_pass2=train["pass2"]["warp_launches"],
                       launches_pass3_cli=cli_res["pass3"]["warp_launches"],
-                      launches_recovery=recover["warp_launches"])
+                      launches_recovery=recover["warp_launches"],
+                      launches_datagen=datagen["c_train"]["warp_launches"])
     kernels[3].update(
         launches_per_train_step=train["warp_bwd_launches_per_step"],
         launches_pass2=train["pass2"]["warp_bwd_launches"],
         launches_pass3_cli=cli_res["pass3"]["warp_bwd_launches"],
-        launches_recovery=recover["warp_bwd_launches"])
+        launches_recovery=recover["warp_bwd_launches"],
+        launches_datagen=datagen["c_train"]["warp_bwd_launches"])
     print(json.dumps({"kernels": kernels, "main_path": bench,
                       "bundled": bundled_quality, "train": train,
                       "cli": cli_res, "quality": quality,
-                      "streamed": streamed, "recover": recover}),
+                      "streamed": streamed, "recover": recover,
+                      "repro": repro, "datagen": datagen}),
           flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

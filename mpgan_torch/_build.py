@@ -1,10 +1,14 @@
-"""Build the port's CUDA kernels with nvcc at first use and load them.
+"""Build the port's native libraries at first use and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
-into ``mpgan_torch/_build/lib<name>-<hash>.so`` (the hash is of the source,
-so an edited source is rebuilt), then loaded with ``ctypes``. No PyTorch
-header is included, which keeps a build to seconds. Builds of several
-sources start together and run in parallel.
+with nvcc into ``mpgan_torch/_build/lib<name>-<hash>.so`` (the hash is of
+the source and the flags, so an edited source is rebuilt), then loaded with
+``ctypes``. No PyTorch header is included, which keeps a build to seconds.
+Builds of several sources start together and run in parallel.
+
+Host-only C++ sources, ``csrc/<name>.cpp`` (the ``.uni`` codec), take the
+second recipe, :func:`build_host`: g++ with the libraries of
+:data:`HOST_LIBS`, into the same directory under the same naming.
 
 Nothing here runs at import: the CPU-only tests import every module.
 """
@@ -24,6 +28,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
+# host source -> the libraries it links
+HOST_LIBS = {"uni_native": ["-lz"]}
 
 # ctypes signatures of each library's entry points:
 # name -> {function: (restype, [argtypes])}
@@ -58,10 +65,35 @@ def nvcc() -> str:
     return str(path)
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def _lib_path(name: str, ext: str = ".cu", flags=NVCC_FLAGS) -> Path:
+    src = (CSRC_DIR / f"{name}{ext}").read_bytes()
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile the host-only ``csrc/<name>.cpp`` with g++ (if it has no
+    up-to-date library yet) → its library path. Raises ``RuntimeError``
+    with g++'s output when the compile fails and ``OSError`` when there is
+    no g++; the library appears by ``os.replace`` of a temporary file, so
+    that no process loads half of one."""
+    libs = HOST_LIBS[name]
+    path = _lib_path(name, ".cpp", GXX_FLAGS + libs)
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        r = subprocess.run(["g++", *GXX_FLAGS, str(CSRC_DIR / f"{name}.cpp"),
+                            "-o", str(tmp), *libs],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            raise RuntimeError(f"g++ {name}.cpp failed ({r.returncode}):\n"
+                               f"{r.stdout}{r.stderr}")
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return path
 
 
 def build(names=None) -> dict[str, Path]:

@@ -3,8 +3,10 @@
 Indexes ``<base>/sim_%04d/`` directories and loads per-frame LR/HR ``.uni``
 volumes into dense numpy arrays, eagerly, into host RAM (``data_fraction``
 bounds it); the tile creator then moves what a pass needs to the card
-once. Decoding uses the port's pure-Python codec (:mod:`mpgan_torch.io.uni`).
-The port imports nothing of the JAX package.
+once. Decoding uses the port's native parallel codec
+(:mod:`mpgan_torch.io.native`) when it builds, else the pure-Python codec
+(:mod:`mpgan_torch.io.uni`); both give the same arrays. The port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from mpgan_torch.io import uni
+from mpgan_torch.io import native, uni
 
 LOW_DENSITY = "density_low_%04d.uni"
 LOW_VELOCITY = "velocity_low_%04d.uni"
@@ -102,7 +104,9 @@ class FluidDataLoader:
         return frames
 
     def get(self) -> FluidDataset:
-        """Load all sims/frames with the pure-Python ``.uni`` decoder."""
+        """Load all sims/frames: the native parallel codec when it is
+        built (:func:`mpgan_torch.io.native.read_many`), else the
+        pure-Python decoder."""
         per_sim: list[tuple[str, list[int]]] = []
         for sim in self.sims:
             sim_dir = os.path.join(self.base_path, f"sim_{sim:04d}")
@@ -123,12 +127,22 @@ class FluidDataLoader:
                     v_paths.append(os.path.join(sim_dir, LOW_VELOCITY % f))
                 h_paths.append(os.path.join(sim_dir, HIGH_DENSITY % f))
 
-        d_arrs = [uni.readUni(p)[1] for p in d_paths]
-        # staggered MAC faces are averaged to cell centres only for files
-        # whose header carries TypeMAC; cell-centred grids pass untouched
-        v_arrs = [uni.readUni(p, recenter=self.mac_recenter)[1]
-                  for p in v_paths]
-        h_arrs = [uni.readUni(p)[1] for p in h_paths]
+        if native.available():
+            d_arrs = native.read_many(d_paths)
+            v_arrs = native.read_many(v_paths) if v_paths else []
+            h_arrs = native.read_many(h_paths)
+        else:
+            d_arrs = [uni.readUni(p)[1] for p in d_paths]
+            v_arrs = [uni.readUni(p)[1] for p in v_paths]
+            h_arrs = [uni.readUni(p)[1] for p in h_paths]
+        if self.mac_recenter:
+            # staggered MAC faces are averaged to cell centres only for
+            # files whose header carries TypeMAC; cell-centred grids pass
+            # untouched. The native header probe spares a second gzip decode
+            gridtype = (native.read_gridtype if native.available()
+                        else uni.read_gridtype)
+            v_arrs = [uni.recenter_mac(v) if gridtype(p) & uni.TYPE_MAC else v
+                      for p, v in zip(v_paths, v_arrs)]
         if self.use_velocities:
             chans = [np.concatenate([d.astype(np.float32),
                                      v.astype(np.float32)], axis=-1)

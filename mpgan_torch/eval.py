@@ -18,6 +18,10 @@ the frames are read as training reads them
 (:func:`mpgan_torch.infer.load.read_lr_frame`). Everything runs on the
 card unless ``device cpu`` is given; ``compileCache`` is accepted and has
 no effect.
+
+SSIM is :func:`mpgan_torch.utils.metrics.ssim_volume`, computed in
+float64: on 128³ frames it can read about 1e-4 below ``scripts/eval.py``'s,
+whose float32 blur loses digits to cancellation in the variance.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ import torch
 from mpgan_torch import convert
 from mpgan_torch.data import loader
 from mpgan_torch.device import resolve_device
-from mpgan_torch.io import uni
+from mpgan_torch.io import native, uni
 from mpgan_torch.models import generator as G
 from mpgan_torch.train import checkpoint as ckpt
 
@@ -184,10 +184,18 @@ def make_default_upscaler(cfg, chain, device=None):
 
 
 def read_uni_volume(path: str, mac_recenter: bool = False) -> np.ndarray:
-    """Decode one .uni volume (pure-Python codec); with ``mac_recenter``,
-    staggered MAC velocity grids (TypeMAC header bit) are averaged to cell
-    centres and other grids pass through."""
-    return uni.readUni(path, recenter=mac_recenter)[1]
+    """Decode one .uni volume, with the native codec when it is built
+    (:mod:`mpgan_torch.io.native`), else the pure-Python one; with
+    ``mac_recenter``, staggered MAC velocity grids (TypeMAC header bit) are
+    averaged to cell centres and other grids pass through."""
+    use_native = native.available()
+    arr = native.read(path) if use_native else uni.readUni(path)[1]
+    if mac_recenter and arr.ndim == 4 and arr.shape[-1] == 3:
+        gt = (native.read_gridtype(path) if use_native
+              else uni.read_gridtype(path))
+        if gt & uni.TYPE_MAC:
+            arr = uni.recenter_mac(arr)
+    return arr
 
 
 def read_lr_frame(cfg, sim_dir: str, f: int) -> np.ndarray | None:

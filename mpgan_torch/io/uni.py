@@ -22,7 +22,9 @@ Arrays are returned/accepted with shape ``(dimZ, dimY, dimX, channels)``
 (channels 1 or 3), matching the layout the reference's tile creator consumes.
 
 A copy of the pure-Python codec in ``mpgan_tpu/io/uni.py``: the port imports
-nothing of the JAX package. The native C++ codec is not used by the port yet.
+nothing of the JAX package. The loader and ``read_uni_volume`` decode with
+the port's native C++ codec (:mod:`mpgan_torch.io.native`) when it builds,
+and with this module otherwise; the datagen writers are this module's.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""Gaussian blur and blur + box-mean downsampling along one axis.
+"""Gaussian blur and blur + box-mean downsampling.
 
-Counterpart of ``gaussian_blur_nd`` and ``downsample_axis`` in
-``mpgan_tpu/ops/resample.py``: the tile creator builds ``hrz``, the HR
-density downsampled along z only (the pass-1 target), with them.
+Counterpart of ``gaussian_blur_nd``, ``downsample_axis``, ``downsample_3d``
+and ``downsample_2d`` in ``mpgan_tpu/ops/resample.py``: the tile creator
+builds ``hrz``, the HR density downsampled along z only (the pass-1
+target), and datagen the LR fields of each frame with them.
 
 The blur is a sum of shifted copies of the edge-padded input weighted by
 the 1-D Gaussian, in float32 on whatever device the tensor lies on — no
@@ -60,3 +61,20 @@ def downsample_axis(vol: torch.Tensor, factor: int, axis: int,
     shape = vol.shape
     new = shape[:axis] + (shape[axis] // factor, factor) + shape[axis + 1:]
     return vol.reshape(new).mean(dim=axis + 1)
+
+
+def downsample_3d(vol: torch.Tensor, factor: int,
+                  blur_sigma: float | None = None) -> torch.Tensor:
+    """(Z, Y, X, C) → (Z/f, Y/f, X/f, C): Gaussian blur then box-average,
+    one axis after the other (the HR→LR step of datagen)."""
+    for ax in (0, 1, 2):
+        vol = downsample_axis(vol, factor, ax, blur_sigma)
+    return vol
+
+
+def downsample_2d(img: torch.Tensor, factor: int,
+                  blur_sigma: float | None = None) -> torch.Tensor:
+    """(H, W, C) → (H/f, W/f, C): Gaussian blur then box-average."""
+    for ax in (0, 1):
+        img = downsample_axis(img, factor, ax, blur_sigma)
+    return img

@@ -71,6 +71,13 @@ def ssim_volume(fake, real, peak: float = 1.0, win_size: int = 11,
     (``torch.backends.cuda.matmul.allow_tf32``, ``cudnn.allow_tf32``),
     would change the score; float64 is never rounded to TF32, so the
     result is full precision whatever those flags say.
+
+    Against the JAX package: ``mpgan_tpu.utils.metrics.ssim_volume`` (and
+    so ``scripts/eval.py``) blurs in float32, where the same E[x²] − E[x]²
+    cancellation lifts its score. On the 128³ gate frames this function can
+    read about 1e-4 below it (1.5e-4 on ``sim_1010c`` frame 12 with the GAN
+    fine-tune's EMA chain), and within 1e-6 of the reference's algorithm
+    run in float64 (``tests/test_torch_metrics.py``).
     """
     a, b = _as_volume(fake), _as_volume(real)
     if a.shape != b.shape:

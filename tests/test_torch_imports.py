@@ -1,6 +1,7 @@
 """The port imports no JAX: a static (AST) scan of every module of
-``mpgan_torch/`` and of ``chip_smoke.py``. And the supervising parent of
-``python -m mpgan_torch.cli ... retryOnError N`` never touches CUDA.
+``mpgan_torch/`` and of ``chip_smoke.py``. And the supervising parents of
+``python -m mpgan_torch.cli ... retryOnError N`` and ``python -m
+mpgan_torch.datagen ... retryOnError N`` never touch CUDA.
 
 Static because the interpreter that runs the tests may import jax at start
 (see tests/conftest.py), so ``sys.modules`` cannot tell who imported it.
@@ -78,4 +79,33 @@ def test_supervisor_gate_initialises_no_cuda(monkeypatch, tmp_path):
                   "trainingIters", "4"])
     assert e.value.code == 0
     assert children and children[0][1:3] == ["-m", "mpgan_torch.cli"]
+    assert touched == [] and not torch.cuda.is_initialized()
+
+
+def test_datagen_supervisor_initialises_no_cuda(monkeypatch, tmp_path):
+    """``python -m mpgan_torch.datagen ... retryOnError 1``: the parent
+    relaunches itself as a child (stubbed here) without touching CUDA, and
+    a restart adds ``skipExisting 1``."""
+    import torch
+
+    from mpgan_torch import datagen
+    from mpgan_torch.utils import supervise
+
+    touched = []
+    monkeypatch.setattr(torch.cuda, "_lazy_init",
+                        lambda: touched.append("_lazy_init"))
+    monkeypatch.setattr(torch.cuda, "is_available",
+                        lambda: touched.append("is_available") or False)
+    children = []
+    monkeypatch.setattr(supervise, "run_child",
+                        lambda cmd, env: children.append(cmd) or 2 - len(
+                            children))            # rc 1, then rc 0
+    monkeypatch.setenv("MPGAN_RETRY_DELAY_S", "0")
+    monkeypatch.delenv("MPGAN_DATAGEN_CHILD", raising=False)
+    with pytest.raises(SystemExit) as e:
+        datagen.main(["basePath", str(tmp_path), "retryOnError", "1"])
+    assert e.value.code == 0 and len(children) == 2
+    assert children[0][1:3] == ["-m", "mpgan_torch.datagen"]
+    assert "skipExisting" not in children[0]
+    assert children[1][-2:] == ["skipExisting", "1"]
     assert touched == [] and not torch.cuda.is_initialized()
