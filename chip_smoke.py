@@ -15,7 +15,9 @@ exit, and no result line:
             through advect_2d_fast and align_triplet_fast and the field
             gradients as the train step asks for them (1e-4); each
             kernel's time against its plain version, a library call
-            (grid_sample, grid_sampler_2d_backward) and its bound
+            (grid_sample, grid_sampler_2d_backward) and its bound; each
+            kernel's ms per call is the median of 5 windows, with their
+            min and max
 2b single  advect_2d_fast forward and backward at B=16 64², the launch
             counts reset just before and read just after: 1 and 1
 3. bundled  the exported 4x L1 pair on sim_1010c frame 12 (32³→128³): f32
@@ -100,12 +102,17 @@ exit, and no result line:
             then with `hangTimeout 5` and MPGAN_HANG_ONCE; each exits 0 with
             its final checkpoint in the run dir it owned
 11c repro   8b's float32 setting (hinge, lrgan 1, lrdisc 1e-2, TF32 off),
-            4 steps, run twice in each of four ways: as it is; with the
+            4 steps, 3 pairs of runs in each of six ways. Four with the
+            generator's upsample backward as F.interpolate's own
+            (atomics; the port's earlier backward): as it was; with the
             triplet backward kernel swapped for its plain version (the
-            autograd of align_triplet_ref under deterministic algorithms);
-            with cudnn.deterministic on and cudnn.benchmark off; with both.
-            Prints the largest parameter gap between the two runs of each
-            way. Reports, does not gate
+            autograd of align_triplet_ref under deterministic
+            algorithms); with cudnn.deterministic on and
+            cudnn.benchmark off; with both.
+            Two with the port's fixed-order upsample backward: alone, and
+            with the other two swaps (all_three). Prints each way's
+            largest and median parameter gap between the runs of a pair.
+            Reports, does not gate
 12 datagen  the data path on the card: (a) one solver step at 64³ with a
             sphere obstacle and MacCormack, Jacobi and CG, on the card and
             on the CPU from the same inputs (Jacobi 1e-5: no reduction, only
@@ -123,6 +130,33 @@ exit, and no result line:
             arrays, both timed; `out 0` for 4 pass-1 steps of the flagship
             recipe on them: 3 forward and 1 backward warp launch per step
             (counts reset just before, read just after)
+13 parallel data-parallel training and parallel inference, float32 at
+            11a's setting for training (ganLoss sce, adamEps 1, TF32 off):
+            (a) `out 0` with `coordinator 127.0.0.1:<free port>
+            numProcesses 1 processId 0`, 4 steps through NCCL at world
+            size 1, equal to the same run without the flags (1e-4), 3
+            forward and 1 backward warp launch per step; (b) two ranks
+            sharing the card over gloo (spawned processes), the flagship
+            recipe at global B=16, 4 steps: with replicated residency
+            each rank's state equals a one-process B=16 run's (1e-4, and
+            within 1e-2 of how far that run moved from the initial
+            state; the gap between two one-process runs printed beside
+            it), and a planted fault (the gradients summed over the
+            ranks, not averaged) exceeds that relative limit; with
+            sharded residency (one sim per rank) the ranks' states are
+            bitwise equal and each rank holds half of the volume stacks;
+            each rank launches 3 forward and 1 backward warp kernels per
+            step (counts reset just before, read just after); with more
+            than one card visible the same over NCCL on two cards; (c)
+            dryrun_multichip(2, share_cards) with both ranks on the
+            card over gloo; (d) at the
+            bench shape (4x, 64³→256³, bundled g1_l1_4x/g2_l1_4x and
+            g3_l1p3_4x): upscale_volume with its slices split over
+            [card] * 2 equals the one-device call, and InferencePipeline
+            with 2 and 3 stages over [card] * k streams 6 frames, each
+            equal to upscale_volume's (bf16 within one unit, 2^-7; f32 on
+            2 frames within 1e-4); ms per frame streamed and sequential
+            (CUDA events), reported
 
 Then one JSON line listing every kernel (its launches on the path that
 runs it, its times at B=16 64², and under "large" at B=256 256²), the
@@ -134,6 +168,7 @@ Runs on one card; exits non-zero without CUDA.
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -162,6 +197,8 @@ WARP_KERNELS = {
     "warp2d_triplet_bwd": ("mpgan_tpu/ops/warp_pallas.py:126", 24, 60),
 }
 WARP_SHAPES = ((16, 64, 64, 200), (256, 256, 256, 20))  # B, H, W, timed calls
+SPREAD_WINDOWS = 5     # a kernel's ms per call: median, min, max of windows
+BF16_UNIT = 2.0 ** -7  # one bf16 unit in the last place of a value in [1, 2)
 
 
 def phase(name):
@@ -336,9 +373,11 @@ def warp_times(wk, b, h, w, iters, dev):
     out = {}
     for name, (kern, plain, lib, lib_fb) in calls.items():
         _, nbytes, flops = WARP_KERNELS[name]
+        windows = sorted(cuda_ms(kern, iters) for _ in range(SPREAD_WINDOWS))
         out[name] = {
             "shape": [b, h, w],
-            "ms": cuda_ms(kern, iters),
+            "ms": windows[SPREAD_WINDOWS // 2],
+            "ms_min": windows[0], "ms_max": windows[-1],
             "plain_ms": cuda_ms(plain, iters),
             "library_ms": cuda_ms(lib, iters),
             "bound_ms": max(px * nbytes / HBM_BYTES_PER_S,
@@ -1176,15 +1215,42 @@ def _plain_triplet_bwd(wk):
     return bwd
 
 
+def _interpolate_upsample(x, fh, fw):
+    """The generator's upsample as the port first ran it:
+    ``F.interpolate`` with its own backward (atomics on CUDA)."""
+    if fh == 1 and fw == 1:
+        return x
+    h, w = x.shape[-2:]
+    return F.interpolate(x, size=(h * fh, w * fw), mode="bilinear",
+                         align_corners=False)
+
+
+# phase 11c: way → (F.interpolate's upsample backward, plain triplet
+# backward, cuDNN deterministic)
+REPRO_WAYS = {
+    "interpolate_bwd": (True, False, False),
+    "plain_triplet_bwd": (True, True, False),
+    "cudnn_deterministic": (True, False, True),
+    "both": (True, True, True),
+    "fixed_upsample_bwd": (False, False, False),
+    "all_three": (False, True, True),
+}
+REPRO_PAIRS = 3
+
+
 def phase_repro(dev, wk):
     from mpgan_torch import cli
+    from mpgan_torch.models import generator
+    from mpgan_torch.ops import upsample
     from mpgan_torch.train import checkpoint as ckpt
     from mpgan_torch.train import loop
 
-    t0 = phase("11c float32 reproducibility: 8b's setting run twice, 4 ways")
+    t0 = phase(f"11c float32 reproducibility: 8b's setting, "
+               f"{len(REPRO_WAYS)} ways x {REPRO_PAIRS} pairs of runs")
     res = {}
     kernel_bwd = wk.align_triplet_kernel_bwd
     step_init = loop.TrainStep.__init__
+    fixed_up = (generator.upsample_nchw, upsample.upsample_nchw)
 
     def plain_bwd_step_init(self, *args, **kwargs):
         step_init(self, *args, **kwargs)
@@ -1200,34 +1266,42 @@ def phase_repro(dev, wk):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            for way in ("as_is", "plain_triplet_bwd", "cudnn_deterministic",
-                        "both"):
-                plain = way in ("plain_triplet_bwd", "both")
+            for way, (interp, plain, determ) in REPRO_WAYS.items():
+                up = _interpolate_upsample if interp else fixed_up[0]
+                generator.upsample_nchw = upsample.upsample_nchw = up
                 wk.align_triplet_kernel_bwd = (_plain_triplet_bwd(wk) if plain
                                                else kernel_bwd)
                 loop.TrainStep.__init__ = (plain_bwd_step_init if plain
                                            else step_init)
-                cudnn.deterministic = way in ("cudnn_deterministic", "both")
-                cudnn.benchmark = False if cudnn.deterministic else flags[1]
+                cudnn.deterministic = determ
+                cudnn.benchmark = False if determ else flags[1]
                 wk.launches = wk.bwd_launches = 0
-                for i in (0, 1):
-                    cli.main((f32 + f"testPath {d}/{way}{i}/").split())
-                torch.cuda.synchronize()
-                a, b = (_state_tensors(ckpt.restore(ckpt.run_dir(
-                    f"{d}/{way}{i}", 0), 2, "cpu")[0]) for i in (0, 1))
-                assert all(bool(torch.isfinite(t.float()).all())
-                           for t in a.values())
-                res[way] = {"repeat_max_abs_gap": _state_gap(a, b),
+                gaps = []
+                for k in range(REPRO_PAIRS):
+                    for i in (0, 1):
+                        cli.main((f32 + f"testPath {d}/{way}{k}{i}/").split())
+                    torch.cuda.synchronize()
+                    a, b = (_state_tensors(ckpt.restore(ckpt.run_dir(
+                        f"{d}/{way}{k}{i}", 0), 2, "cpu")[0])
+                        for i in (0, 1))
+                    assert all(bool(torch.isfinite(t.float()).all())
+                               for t in a.values())
+                    gaps.append(_state_gap(a, b))
+                res[way] = {"repeat_max_abs_gaps": gaps,
+                            "largest": max(gaps),
+                            "median": sorted(gaps)[REPRO_PAIRS // 2],
                             "warp_launches": wk.launches,
                             "warp_bwd_kernel_launches": wk.bwd_launches}
         finally:
+            generator.upsample_nchw, upsample.upsample_nchw = fixed_up
             wk.align_triplet_kernel_bwd = kernel_bwd
             loop.TrainStep.__init__ = step_init
             cudnn.deterministic, cudnn.benchmark = flags
             torch.backends.cudnn.allow_tf32 = True
             torch.backends.cuda.matmul.allow_tf32 = True
     print("   repro " + json.dumps(res), flush=True)
-    done(t0, **{k: v["repeat_max_abs_gap"] for k, v in res.items()})
+    done(t0, **{k: f"{v['largest']:.3g}/{v['median']:.3g}"
+                for k, v in res.items()})
     return res
 
 
@@ -1382,6 +1456,276 @@ def phase_datagen(dev, wk, card):
     return res
 
 
+# phase 13b: two ranks' gap to one process, as a share of how far the
+# one-process run moved from the initial state
+DP_REL_LIMIT = 1e-2
+
+
+def _dp_config():
+    """The flagship recipe in phase 11a's float32 setting (ganLoss sce,
+    adamEps 1; the caller turns TF32 off), where the card reproduces an
+    uninterrupted run within 1e-4."""
+    from mpgan_torch.train import recipe
+
+    cfg = recipe.flagship_config("float32")
+    cfg.loss.gan_loss = "sce"
+    cfg.train.adam_eps = 1.0
+    return cfg
+
+
+DP_MODES = ("replicated", "sharded", "summed")
+
+
+def _dp_rank(rank, world, url, out_dir, own_cards):
+    """One rank of phase 13b (a spawned process): the flagship recipe at
+    global B=16 on the synthetic dataset, 4 steps with replicated, then
+    sharded residency, then replicated again with a planted fault (each
+    gradient summed over the ranks instead of averaged: the check that
+    two ranks equal one process must catch it), on card ``rank`` over
+    NCCL (``own_cards``) or on card 0 over gloo. Saves each final state
+    and writes ``rank<r>.json``: residency, volumes held, warp
+    launches."""
+    from mpgan_torch import _build
+    from mpgan_torch.data.pipeline import TileCreator
+    from mpgan_torch.ops import warp_kernel as wk
+    from mpgan_torch.parallel import mesh as pmesh
+    from mpgan_torch.train import loop, recipe
+
+    dev = torch.device("cuda", rank if own_cards else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load("warp")
+    pmesh.init_distributed(url, world, rank, "nccl" if own_cards else "gloo")
+    res = {"rank": rank, "world": pmesh.world(), "device": str(dev)}
+    mean = pmesh.all_reduce_mean
+    try:
+        ds = recipe.synthetic_dataset()
+        for mode in DP_MODES:
+            if mode == "summed":
+                pmesh.all_reduce_mean = lambda ts, share=None: mean(ts, 1.0)
+            tc = TileCreator(ds, 16, density_threshold=0.0, device=dev)
+            tr = loop.Trainer(_dp_config(), tc, device=dev,
+                              shard_data=mode == "sharded")
+            torch.cuda.synchronize()
+            wk.launches = wk.bwd_launches = 0                  # path starts
+            out = tr.fit(4)
+            torch.cuda.synchronize()
+            launches = (wk.launches, wk.bwd_launches)          # path ends
+            pmesh.all_reduce_mean = mean
+            state = _train_state(tr.rt)
+            pmesh.check_replicated([t.to(dev) for t in state.values()])
+            torch.save(state, os.path.join(out_dir, f"{mode}{rank}.pt"))
+            res[mode] = {"data_sharded": tr.data_sharded,
+                         "lr_vols": int(tc.lr.shape[0]),
+                         "hrz_vols": int(tc.hrz.shape[0]),
+                         "stack_bytes": tc.lr.nbytes + tc.hrz.nbytes,
+                         "warp_launches": launches[0],
+                         "warp_bwd_launches": launches[1],
+                         "g_loss": out["g_loss"]}
+    finally:
+        pmesh.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _dp_two_ranks(d, own_cards):
+    """Phase 13b over two spawned ranks → their results and states."""
+    out = os.path.join(d, "nccl" if own_cards else "gloo")
+    os.makedirs(out)
+    torch.multiprocessing.start_processes(
+        _dp_rank, args=(2, f"file://{out}/store", out, own_cards), nprocs=2,
+        start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            info = json.load(f)
+        info["states"] = {m: torch.load(os.path.join(out, f"{m}{r}.pt"))
+                          for m in DP_MODES}
+        ranks.append(info)
+    return ranks
+
+
+def phase_parallel(dev, wk):
+    """13: data-parallel training, the dry run and parallel inference."""
+    from mpgan_torch import cli
+    from mpgan_torch.data.pipeline import TileCreator
+    from mpgan_torch.dryrun import dryrun_multichip
+    from mpgan_torch.train import checkpoint as ckpt
+    from mpgan_torch.train import loop, recipe
+
+    t0 = phase("13 parallel: NCCL world 1, two ranks on the card, "
+               "dryrun_multichip(2), sliced and pipelined inference")
+    res = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as d:
+        # (a) out 0 through NCCL at world size 1 against the same run
+        # without the flags
+        smooth_dataset(os.path.join(d, "data"), n_sims=1)
+        f32 = (f"basePath {d}/data/ fromSim 1000 toSim 1000 frameMax 4 out 0 "
+               + CLI_RECIPE.replace("ganLoss hinge", "ganLoss sce")
+               + " dtype float32 adamEps 1 trainingIters 4 saveInterval 0 "
+               "outputInterval 4 ")
+        t = time.perf_counter()
+        wk.launches = wk.bwd_launches = 0                      # path starts
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        cli.main((f32 + f"testPath {d}/nccl/ coordinator 127.0.0.1:{port} "
+                  "numProcesses 1 processId 0").split())
+        torch.cuda.synchronize()
+        launches = (wk.launches, wk.bwd_launches)              # path ends
+        res["a_s"] = time.perf_counter() - t
+        assert launches == (3 * 4, 4), launches
+        cli.main((f32 + f"testPath {d}/plain/").split())
+        got, want = (ckpt.restore(ckpt.run_dir(f"{d}/{n}", 0), 0, "cpu")
+                     for n in ("nccl", "plain"))
+        assert got[1] == want[1] and got[1]["it"] == 4, (got[1], want[1])
+        gap = _state_gap(_state_tensors(got[0]), _state_tensors(want[0]))
+        assert gap <= 1e-4, gap
+        res["a"] = {"nccl_world1_vs_no_flags_max_abs_gap": gap,
+                    "warp_launches": launches[0],
+                    "warp_bwd_launches": launches[1]}
+
+        # (b) two ranks on the card over gloo at global B=16 against one
+        # process at B=16 (twice: the card's own spread)
+        t = time.perf_counter()
+        ranks = _dp_two_ranks(d, own_cards=False)
+        res["b_s"] = time.perf_counter() - t
+        ds = recipe.synthetic_dataset()
+        one = []
+        for _ in range(2):
+            tr = loop.Trainer(_dp_config(), TileCreator(
+                ds, 16, density_threshold=0.0, device=dev), device=dev)
+            init = _train_state(tr.runtime())
+            tr.fit(4)
+            one.append(_train_state(tr.rt))
+        spread = _state_gap(one[1], one[0])
+        # the gap is held absolutely and against how far the 4 steps moved
+        # the state: a fault that every rank makes alike (a sum in place of
+        # the mean) moves the state by a share of that distance, which at
+        # adamEps 1 can stay below 1e-4
+        moved = _state_gap(one[0], init)
+        rep_gap, sum_gap = (max(_state_gap(r["states"][m], one[0])
+                                for r in ranks)
+                            for m in ("replicated", "summed"))
+        assert rep_gap <= 1e-4 and rep_gap <= DP_REL_LIMIT * moved, (
+            rep_gap, moved, spread)
+        assert sum_gap > DP_REL_LIMIT * moved, (sum_gap, moved)
+        sh = [r["states"]["sharded"] for r in ranks]
+        assert all(torch.equal(sh[0][k], sh[1][k]) for k in sh[0])
+        full = ds.lr.shape[0]
+        for r in ranks:
+            assert not r["replicated"]["data_sharded"]
+            assert r["replicated"]["lr_vols"] == full
+            assert r["sharded"]["data_sharded"]
+            assert (r["sharded"]["lr_vols"], r["sharded"]["hrz_vols"]) == (
+                full // 2, full // 2), r["sharded"]
+            for m in DP_MODES:
+                assert (r[m]["warp_launches"], r[m]["warp_bwd_launches"]) \
+                    == (3 * 4, 4), r[m]
+        res["b"] = {
+            "ranks_vs_one_process_max_abs_gap": rep_gap,
+            "one_process_repeat_max_abs_gap": spread,
+            "one_process_moved_from_init_max_abs": moved,
+            "summed_fault_vs_one_process_max_abs_gap": sum_gap,
+            "relative_limit": DP_REL_LIMIT,
+            "sharded_ranks_bitwise_equal": True,
+            "stack_bytes_per_rank": {m: ranks[0][m]["stack_bytes"]
+                                     for m in ("replicated", "sharded")},
+            # rank 0's launches in its replicated and sharded runs (the
+            # planted fault's run is a control, not the path)
+            "warp_launches_per_rank": sum(
+                ranks[0][m]["warp_launches"]
+                for m in ("replicated", "sharded")),
+            "warp_bwd_launches_per_rank": sum(
+                ranks[0][m]["warp_bwd_launches"]
+                for m in ("replicated", "sharded")),
+            "g_loss": {m: [r[m]["g_loss"] for r in ranks]
+                       for m in DP_MODES}}
+        if torch.cuda.device_count() > 1:
+            ranks = _dp_two_ranks(d, own_cards=True)
+            nccl_gap = max(_state_gap(r["states"]["replicated"], one[0])
+                           for r in ranks)
+            assert nccl_gap <= 1e-4, nccl_gap
+            sh = [r["states"]["sharded"] for r in ranks]
+            assert all(torch.equal(sh[0][k], sh[1][k]) for k in sh[0])
+            res["b"]["nccl_two_cards_vs_one_process_max_abs_gap"] = nccl_gap
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # (c) the dry run: two gloo ranks sharing the card
+    t = time.perf_counter()
+    dry = dryrun_multichip(2, "cuda", share_cards=True)
+    res["c"] = {"s": time.perf_counter() - t, "backend": dry["backend"],
+                "data_sharded": dry["data_sharded"], "stages": dry["stages"]}
+
+    # (d) inference at the bench shape: the slices split over [card] * 2,
+    # then the passes as a pipeline of 2 and 3 stages over [card] * k
+    res["d"] = _parallel_inference(dev)
+    print("   parallel " + json.dumps(res), flush=True)
+    done(t0)
+    return res
+
+
+def _parallel_inference(dev):
+    """13d → per dtype: the sliced call's error, each pipeline's split,
+    error and (bf16) ms per frame streamed and sequential."""
+    from mpgan_torch.infer import assemble, load
+    from mpgan_torch.infer.pipeline import InferencePipeline
+
+    frames = [np.random.default_rng(s).random((64, 64, 64, 4),
+                                              dtype=np.float32)
+              for s in range(6)]
+    out = {}
+    for dtype, tol in (("bfloat16", BF16_UNIT), ("float32", 1e-4)):
+        torch.backends.cudnn.allow_tf32 = dtype != "float32"
+        torch.backends.cuda.matmul.allow_tf32 = dtype != "float32"
+        cfg, g1, g2 = load_chain(dtype, dev)
+        g3 = load.load_bundled("g3_l1p3_4x", dtype, dev)
+        use = frames if dtype == "bfloat16" else frames[:2]
+        with torch.inference_mode():
+            lr = torch.from_numpy(use[0]).to(dev)
+            one = assemble.upscale_volume(g1, g2, lr, 4)
+            two = assemble.upscale_volume(g1, g2, lr, 4, devices=[dev] * 2)
+            sliced_err = float((two.float() - one.float()).abs().max())
+        assert sliced_err <= tol, (dtype, sliced_err)
+        res = {"apply_sliced_2_devices_max_abs_err": sliced_err}
+        for k, gen3 in ((2, None), (3, g3)):
+            def sequential():
+                with torch.inference_mode():
+                    return [assemble.upscale_volume(
+                        g1, g2, torch.from_numpy(f).to(dev), 4, gen3=gen3)
+                        for f in use]
+            pp = InferencePipeline(g1, g2, 4, devices=[dev] * k, gen3=gen3)
+            want = sequential()
+            got = list(pp.stream(use))
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+            assert len(got) == len(use) and err <= tol, (dtype, k, err)
+            entry = {"split": list(pp.split), "max_abs_err": err,
+                     "frames": len(use)}
+            if dtype == "bfloat16":
+                for name, fn in (("streamed", lambda: list(pp.stream(use))),
+                                 ("sequential", sequential)):
+                    fn()
+                    torch.cuda.synchronize()
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                    fn()
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    entry[f"{name}_ms_per_frame"] = (
+                        ev[0].elapsed_time(ev[1]) / len(use))
+            res[f"pipeline_{k}_stages"] = entry
+        out[dtype] = res
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return out
+
+
 def nvidia_smi():
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1421,6 +1765,7 @@ def main():
     recover = phase_recover(dev, wk)
     repro = phase_repro(dev, wk)
     datagen = phase_datagen(dev, wk, nvidia_smi())
+    parallel = phase_parallel(dev, wk)
 
     # launches: each kernel's count on the path that runs it, the train
     # step (7b) for the triplet kernels, advect_2d_fast (2b) for the
@@ -1450,18 +1795,25 @@ def main():
                       launches_pass2=train["pass2"]["warp_launches"],
                       launches_pass3_cli=cli_res["pass3"]["warp_launches"],
                       launches_recovery=recover["warp_launches"],
-                      launches_datagen=datagen["c_train"]["warp_launches"])
+                      launches_datagen=datagen["c_train"]["warp_launches"],
+                      launches_nccl_world1=parallel["a"]["warp_launches"],
+                      launches_two_ranks_per_rank=parallel["b"][
+                          "warp_launches_per_rank"])
     kernels[3].update(
         launches_per_train_step=train["warp_bwd_launches_per_step"],
         launches_pass2=train["pass2"]["warp_bwd_launches"],
         launches_pass3_cli=cli_res["pass3"]["warp_bwd_launches"],
         launches_recovery=recover["warp_bwd_launches"],
-        launches_datagen=datagen["c_train"]["warp_bwd_launches"])
+        launches_datagen=datagen["c_train"]["warp_bwd_launches"],
+        launches_nccl_world1=parallel["a"]["warp_bwd_launches"],
+        launches_two_ranks_per_rank=parallel["b"][
+            "warp_bwd_launches_per_rank"])
     print(json.dumps({"kernels": kernels, "main_path": bench,
                       "bundled": bundled_quality, "train": train,
                       "cli": cli_res, "quality": quality,
                       "streamed": streamed, "recover": recover,
-                      "repro": repro, "datagen": datagen}),
+                      "repro": repro, "datagen": datagen,
+                      "parallel": parallel}),
           flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,11 +23,23 @@ never touches the card.
 
 Flags take the reference's names (:func:`mpgan_torch.config.from_cli` and
 those read in :func:`main`); an unknown flag aborts. ``device`` (``cuda``
-by default) is the only way to the CPU. The multi-host flags
-``coordinator``, ``numProcesses`` and ``processId`` are refused by name
-until the parallelism slice. ``pipelineSplit`` is parsed and, as in the
-JAX package on one device, has no effect; ``compileCache`` names a JAX
+by default) is the only way to the CPU. ``compileCache`` names a JAX
 compile cache and has no effect here.
+
+Parallelism, as the JAX package's ``make_mesh()`` takes every chip:
+- ``out 0`` trains data-parallel with one rank (process) per visible card
+  (``CUDA_VISIBLE_DEVICES`` limits them), NCCL between them
+  (:mod:`mpgan_torch.train.loop`). On a host with one card it runs in this
+  process.
+- ``coordinator host:port numProcesses N processId I`` joins a job of N
+  host processes; each starts one rank per visible card, global rank I ×
+  (cards per host) + local rank. With ``device cpu`` each host process is
+  one gloo rank.
+- ``out 1`` splits each pass's slices over every visible card
+  (:func:`mpgan_torch.infer.assemble.apply_sliced`), or with
+  ``pipelineSplit auto`` (or ``a,b[,c]`` cards per pass) runs the passes
+  as a pipeline of card groups (:mod:`mpgan_torch.infer.pipeline`) when
+  more than one card is visible.
 
 The run-dir layout is :mod:`mpgan_torch.train.checkpoint`'s.
 """
@@ -36,6 +48,7 @@ from __future__ import annotations
 
 import os
 import re
+import socket
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -45,16 +58,56 @@ import torch
 from mpgan_torch import config as cfgmod
 from mpgan_torch import convert
 from mpgan_torch.device import resolve_device
+from mpgan_torch.parallel import mesh as pmesh
 from mpgan_torch.train import checkpoint as ckpt
 from mpgan_torch.utils import params as ph
 from mpgan_torch.utils.liveness import touch_heartbeat
 
-# flag → what it belongs to, for the pieces not ported yet; each is refused
-# unless it holds its "off" value
-_NOT_PORTED = {"coordinator": "multi-host training",
-               "numProcesses": "multi-host training",
-               "processId": "multi-host training"}
-_OFF = {"", "0", "0.0", "-1"}
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(local_rank: int, argv: list[str]) -> None:
+    """A spawned training rank: :func:`main` on card ``local_rank``."""
+    os.environ["MPGAN_LOCAL_RANK"] = str(local_rank)
+    main(argv)
+
+
+def _join_ranks(argv: list[str], dev: torch.device, coordinator: str,
+                num_processes: int, process_id: int) -> torch.device | None:
+    """Make this process one rank of the training job the flags describe
+    → the rank's device; None when it started one rank per card itself
+    (spawned processes, joined before it returns)."""
+    local = torch.cuda.device_count() if dev.type == "cuda" else 1
+    multi = bool(coordinator or num_processes)
+    if not multi and local <= 1:
+        return dev
+    local_rank = os.environ.get("MPGAN_LOCAL_RANK")
+    if local_rank is None and local > 1:
+        if not multi:   # one host: a job of one process over its cards
+            argv = argv + ["coordinator", f"127.0.0.1:{_free_port()}",
+                           "numProcesses", "1", "processId", "0"]
+        print(f"data-parallel training: {local} ranks, one per card",
+              flush=True)
+        torch.multiprocessing.start_processes(
+            _rank_entry, args=(argv,), nprocs=local, start_method="spawn")
+        return None
+    if not coordinator or num_processes < 1:
+        sys.exit("coordinator host:port and numProcesses N go together")
+    if process_id < 0:
+        if num_processes > 1:
+            sys.exit(f"processId is required with numProcesses "
+                     f"{num_processes}")
+        process_id = 0
+    lr = int(local_rank or 0)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", lr)
+        torch.cuda.set_device(dev)
+    pmesh.init_distributed(coordinator, num_processes * local,
+                           process_id * local + lr, pmesh.backend_for(dev))
+    return dev
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -80,9 +133,10 @@ def main(argv: list[str] | None = None) -> None:
             argv, max(retry_budget, 0), hang_timeout,
             infer=bool(int(ph.getParam("out", ph.getParam("outputOnly",
                                                           0))))))
-    for flag, what in _NOT_PORTED.items():
-        if ph.hasParam(flag) and ph.getParam(flag, "") not in _OFF:
-            sys.exit(f"{flag}: {what} is not ported to mpgan_torch yet")
+    # multi-host (JAX scripts/multipass_gan.py:74-82)
+    coordinator = str(ph.getParam("coordinator", ""))
+    num_processes = int(ph.getParam("numProcesses", 0))
+    process_id = int(ph.getParam("processId", -1))
     ph.getParam("compileCache", "")          # a JAX compile cache: no effect
     device = ph.getParam("device", "cuda")
     # flags of this entry point, read before from_cli's checkUnusedParams
@@ -115,8 +169,26 @@ def main(argv: list[str] | None = None) -> None:
     dev = resolve_device(device)
 
     if cfg.infer.output_only:
+        if coordinator or num_processes:
+            sys.exit("out 1 runs on one host (over every card it sees); "
+                     "coordinator/numProcesses are for training")
         run_inference(cfg, dev, load_test2, load_no2, load_test3, load_no3)
         return
+    dev = _join_ranks(argv, dev, coordinator, num_processes, process_id)
+    if dev is None:
+        return
+    try:
+        _train_main(cfg, argv, dev, pass2_source, pass3_source, train_pass,
+                    resume_test, resume_no, resume_latest, resume_index,
+                    warm_test, warm_no, load_test2, load_no2)
+    finally:
+        pmesh.shutdown()
+
+
+def _train_main(cfg, argv, dev, pass2_source, pass3_source, train_pass,
+                resume_test, resume_no, resume_latest, resume_index,
+                warm_test, warm_no, load_test2, load_no2) -> None:
+    """``out 0`` on this rank: the resume flags, then :func:`run_training`."""
     pno = train_pass if train_pass else (1 if cfg.train.first_gen_run else 2)
     resume_total = False
     # a supervisor's restarts are scoped to run dirs of its own launch
@@ -328,12 +400,13 @@ def run_training(cfg, argv, dev: torch.device, pass2_source: str = "gt",
     """Train one pass into a run dir (``multipass_gan.py:330-542``):
     periodic checkpoints every ``saveInterval`` iterations and a final one,
     each sidecar with the run's ``total_iters``; metrics and preview grids
-    every ``outputInterval``. → the run dir."""
+    every ``outputInterval``. In a data-parallel job every rank trains and
+    the lead alone writes files. → the run dir."""
     from mpgan_torch.data.loader import FluidDataLoader
     from mpgan_torch.data.pipeline import TileCreator
     from mpgan_torch.infer import assemble
     from mpgan_torch.infer.load import load_generator
-    from mpgan_torch.train.loop import Trainer
+    from mpgan_torch.train.loop import Trainer, replicate_state
     from mpgan_torch.utils import preview
 
     dcfg = cfg.data
@@ -365,15 +438,18 @@ def run_training(cfg, argv, dev: torch.device, pass2_source: str = "gt",
                      dcfg.augment, dcfg.rot_mode, dcfg.scale_min,
                      dcfg.scale_max, device=dev, interm=interm, final=final)
     run = run_override or ckpt.next_run_dir(cfg.train.test_path)
+    lead = pmesh.is_lead()
     run_file = os.environ.get("MPGAN_RUN_FILE")
-    if run_file:
+    if run_file and lead:
         # tell a supervisor which run dir this attempt owns
         with open(run_file, "w") as f:
             f.write(run)
-    ckpt.save_param_log(run, cfg, argv, pass_no=pass_no)
+    if lead:
+        ckpt.save_param_log(run, cfg, argv, pass_no=pass_no)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"run dir: {run}; device: {dev} ({name}); pass {pass_no}")
+    print(f"run dir: {run}; device: {dev} ({name}); rank {pmesh.rank()} of "
+          f"{pmesh.world()}; pass {pass_no}")
 
     # the sidecars record the absolute target, known after the resume logic
     budget = {"total_iters": cfg.train.training_iters}
@@ -381,9 +457,10 @@ def run_training(cfg, argv, dev: torch.device, pass2_source: str = "gt",
     def on_checkpoint(trainer, it):
         no = it // cfg.train.save_interval
         trainer.save(run, no, it, total_iters=budget["total_iters"])
-        print(f"  saved model_{no:04d} at iter {it}")
+        if lead:
+            print(f"  saved model_{no:04d} at iter {it}")
 
-    writer = preview.MetricsWriter(run)
+    writer = preview.MetricsWriter(run) if lead else None
     preview_rng = torch.Generator(device=dev).manual_seed(12345)
 
     def on_log(trainer, metrics):
@@ -418,6 +495,7 @@ def run_training(cfg, argv, dev: torch.device, pass2_source: str = "gt",
         for k, p in rt.gen.named_parameters():  # restart the average
             if k in rt.ema:
                 rt.ema[k].copy_(p.detach())
+        replicate_state(rt)
         print(f"warm-started generator from {prev_run}/gen_{no:04d}")
     if pass_no == 1 and warm_test < 0 and resume_test < 0 \
             and cfg.train.load_model_test >= 0:
@@ -446,11 +524,16 @@ def run_training(cfg, argv, dev: torch.device, pass2_source: str = "gt",
               f"training to {total_iters}")
     budget["total_iters"] = total_iters
     try:
-        last = tr.fit(iters=total_iters, on_log=on_log, start_it=start_it,
-                      on_checkpoint=on_checkpoint)
+        last = tr.fit(iters=total_iters, on_log=on_log if lead else None,
+                      start_it=start_it, on_checkpoint=on_checkpoint)
     finally:
-        writer.close()
-    latest = ckpt.latest_model_no(run)
+        if writer is not None:
+            writer.close()
+    # the lead's listing decides: ranks on hosts without one shared
+    # filesystem could disagree
+    latest = ckpt.latest_model_no(run) if lead else None
+    latest = pmesh.broadcast_int(-1 if latest is None else latest)
+    latest = None if latest < 0 else latest
     if not last and latest is not None:
         # no iteration ran, and the dir already holds this state
         print(f"budget already complete (model_{latest:04d}); no new "
@@ -470,9 +553,11 @@ def run_inference(cfg, dev: torch.device, load_test2: int, load_no2: int,
     frame f+1 is read in a reader thread while the card upscales frame f,
     and the atomic ``.uni``/PNG writes drain through a writer thread. With
     ``writeTest k`` the sweep writes into ``test_k`` and skips frames whose
-    outputs all exist. Each written frame touches the heartbeat;
-    ``MPGAN_FAIL_ONCE`` crashes the sweep once, after its first frame is
-    written. → the output run dir."""
+    outputs all exist. With ``pipelineSplit`` (``auto`` or ``a,b[,c]``)
+    and more than one visible card the passes run as a pipeline of card
+    groups, ``n_stages`` frames in flight. Each written frame touches the
+    heartbeat; ``MPGAN_FAIL_ONCE`` crashes the sweep once, after its first
+    frame is written. → the output run dir."""
     from mpgan_torch.infer.load import (load_pass_chain,
                                         make_default_upscaler, read_lr_frame)
     from mpgan_torch.io import uni
@@ -486,7 +571,21 @@ def run_inference(cfg, dev: torch.device, load_test2: int, load_no2: int,
         os.makedirs(out_dir, exist_ok=True)
     else:
         out_dir = ckpt.next_run_dir(cfg.train.test_path)
-    upscale = make_default_upscaler(cfg, chain, dev)
+    pp = upscale = None
+    if (cfg.infer.pipeline_split and chain[1] is not None
+            and dev.type == "cuda" and torch.cuda.device_count() > 1):
+        from mpgan_torch.infer.pipeline import InferencePipeline
+
+        spec = cfg.infer.pipeline_split
+        split = (None if spec == "auto"
+                 else [int(v) for v in spec.split(",")])
+        pp = InferencePipeline(chain[0], chain[1], cfg.data.up_res,
+                               split=split, chunk=cfg.infer.slice_chunk,
+                               gen3=chain[2])
+        print(f"pipeline-parallel inference: {pp.n_stages} stages, split "
+              f"{pp.split}")
+    else:
+        upscale = make_default_upscaler(cfg, chain, dev)
 
     def read_frame(sim, f):
         return read_lr_frame(cfg, os.path.join(cfg.data.base_path,
@@ -518,22 +617,17 @@ def run_inference(cfg, dev: torch.device, load_test2: int, load_no2: int,
         frames = todo
     with ThreadPoolExecutor(1) as reader, ThreadPoolExecutor(1) as writer:
         pending = []
-        nxt = reader.submit(read_frame, *frames[0]) if frames else None
-        for i, (sim, f) in enumerate(frames):
-            lr_np = nxt.result()
-            if i + 1 < len(frames):
-                nxt = reader.submit(read_frame, *frames[i + 1])
-            if lr_np is None:
-                continue
-            hr = _to_host(upscale(lr_np))
+
+        def flush(sim, f, hr, lr_shape):
+            hr = _to_host(hr)
             out = os.path.join(out_dir, f"source_{sim:04d}_{f:04d}.uni")
             # bound the writes in flight: each holds a full HR volume
             while len(pending) >= 3:
                 pending.pop(0).result()
             pending.append(writer.submit(write_frame, out, hr))
             touch_heartbeat()
-            print(f"sim {sim} frame {f}: {lr_np.shape[:3]} -> "
-                  f"{hr.shape[:3]} -> {out}")
+            print(f"sim {sim} frame {f}: {lr_shape} -> {hr.shape[:3]} -> "
+                  f"{out}")
             # fault injection for recovery tests: crash once, after the
             # first frame is durably written
             fail_once = os.environ.get("MPGAN_FAIL_ONCE")
@@ -543,6 +637,23 @@ def run_inference(cfg, dev: torch.device, load_test2: int, load_no2: int,
                     fh.write(f"injected at sim {sim} frame {f}\n")
                 raise RuntimeError(f"MPGAN_FAIL_ONCE: injected fault after "
                                    f"writing sim {sim} frame {f}")
+
+        inflight = []   # pipeline: (sim, f, volume in flight, LR shape)
+        nxt = reader.submit(read_frame, *frames[0]) if frames else None
+        for i, (sim, f) in enumerate(frames):
+            lr_np = nxt.result()
+            if i + 1 < len(frames):
+                nxt = reader.submit(read_frame, *frames[i + 1])
+            if lr_np is None:
+                continue
+            if pp is not None:
+                inflight.append((sim, f, pp.submit(lr_np), lr_np.shape[:3]))
+                if len(inflight) > pp.n_stages:
+                    flush(*inflight.pop(0))
+            else:
+                flush(sim, f, upscale(lr_np), lr_np.shape[:3])
+        for item in inflight:
+            flush(*item)
         for p in pending:
             p.result()
     print(f"inference outputs in {out_dir}")

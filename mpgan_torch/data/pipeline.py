@@ -25,7 +25,12 @@ pass-2 input: frozen-G1 outputs, else ``hrz``); ``final`` (N, Z·s, Y·s,
 X·s, 1) (the pass-3 input: two-pass outputs, else ``hr``); ``hr`` the full
 HR density (the pass-2 and pass-3 target). Residency is lazy and per pass:
 pass 1 puts only ``lr`` and ``hrz`` on the device, and ``hrz`` is built one
-HR volume at a time. Sharded residency waits for the parallelism slice.
+HR volume at a time.
+
+Sharded residency (:meth:`TileCreator.shard_over`, JAX ``:415-456``): in a
+data-parallel run each rank keeps only its block of whole sims on its card
+and a shard-local dense-cell index (:func:`_shard_dense`), and draws its
+share of the batch from them with its own generator.
 """
 
 from __future__ import annotations
@@ -319,6 +324,52 @@ def dense_cell_index(lr: np.ndarray, density_threshold: float,
     return dense.astype(np.int32), dense_t.astype(np.int32), pool
 
 
+def _shard_dense(dense: np.ndarray, n_shards: int, vols_per_shard: int,
+                 grid_shape: tuple[int, int, int],
+                 temporal_frames: int | None = None) -> np.ndarray:
+    """Partition a global (K, 4) dense-cell index by volume shard (JAX
+    ``mpgan_tpu/data/pipeline.py:281-320``).
+
+    Returns (n_shards·M, 4) with *shard-local* volume indices; each shard's
+    block is cyclically tiled to the common length M = max per-shard count
+    (rows stay intact: ``np.resize`` tiles the flat buffer and the row
+    length divides it), so a uniform draw from a block keeps the
+    within-shard distribution about uniform. A shard whose volumes hold no
+    above-threshold cell takes a uniform lattice over all its pooled cells
+    (subsampled to the others' size); with ``temporal_frames`` that lattice
+    keeps to frames in [1, n_frames − 2], as the global temporal index
+    does.
+    """
+    blocks = []
+    for s in range(n_shards):
+        lo = s * vols_per_shard
+        blk = dense[(dense[:, 0] >= lo) &
+                    (dense[:, 0] < lo + vols_per_shard)].copy()
+        blk[:, 0] -= lo
+        blocks.append(blk)
+    cap = max([b.shape[0] for b in blocks if b.shape[0]] or [1024])
+    for s, blk in enumerate(blocks):
+        if blk.shape[0] == 0:  # an empty shard: anywhere local, uniform
+            gz, gy, gx = grid_shape
+            vols = np.arange(vols_per_shard)
+            if temporal_frames is not None:
+                # shards hold whole sims, so a local volume's frame is v % F
+                frm = vols % temporal_frames
+                ok = (frm >= 1) & (frm <= temporal_frames - 2)
+                if ok.any():
+                    vols = vols[ok]
+            full = np.stack(np.meshgrid(
+                vols, np.arange(gz), np.arange(gy),
+                np.arange(gx), indexing="ij"), -1).reshape(-1, 4)
+            if full.shape[0] > cap:
+                sel = np.random.default_rng(s).choice(
+                    full.shape[0], size=cap, replace=False)
+                full = full[np.sort(sel)]
+            blocks[s] = full.astype(dense.dtype)
+    m = max(b.shape[0] for b in blocks)
+    return np.concatenate([np.resize(b, (m, 4)) for b in blocks])
+
+
 class TileCreator:
     """Holds device-resident volumes; samples augmented training batches."""
 
@@ -357,9 +408,13 @@ class TileCreator:
         n_frames = int(dataset.n_frames)
         dense, dense_t, pool = dense_cell_index(dataset.lr, density_threshold,
                                                 n_frames)
+        self._host_dense, self._host_dense_t = dense, dense_t
+        self._pooled_shape = tuple(int(d) // p for d, p in
+                                   zip(dataset.lr.shape[1:4], pool))
         self.dense_idx = torch.from_numpy(dense).to(self.device, torch.int64)
         self.dense_idx_t = torch.from_numpy(dense_t).to(self.device,
                                                         torch.int64)
+        self.n_shards, self.shard = 1, 0
         self.st = TCStatic(
             tile_lr=int(tile_lr), up_res=int(dataset.up_res),
             n_vel=3 if dataset.use_velocities else 0,
@@ -371,10 +426,50 @@ class TileCreator:
             dims_zyx=tuple(int(v) for v in dataset.lr.shape[1:4]),
             pool_zyx=pool,
         )
+        self.st_local = self.st
 
     @property
     def up_res(self) -> int:
         return self.st.up_res
+
+    def shard_over(self, n_shards: int, shard: int) -> bool:
+        """Keep only shard ``shard`` of ``n_shards`` on the device: a
+        contiguous block of *whole sims* (so that t±1 neighbours stay in
+        the block) and that block's rows of the dense-cell index, with
+        shard-local volume numbers. The card then holds dataset/n_shards,
+        and a draw samples the local block (JAX ``:415-456``).
+
+        Applies only when the sim count divides over the shards; otherwise
+        residency stays whole and this returns False. Idempotent for the
+        same split; call it before the first batch (volumes already on the
+        device are cut to the block)."""
+        if self.n_shards > 1:
+            if (self.n_shards, self.shard) == (n_shards, shard):
+                return True
+            raise RuntimeError("TileCreator already sharded another way")
+        n_sims = self.st.n_vols // self.st.n_frames
+        if n_shards <= 1 or n_sims % n_shards:
+            return False
+        if not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} is not in [0, {n_shards})")
+        vols = self.st.n_vols // n_shards
+        lo, hi = shard * vols, (shard + 1) * vols
+        self.n_shards, self.shard = n_shards, shard
+        self.st_local = self.st._replace(n_vols=vols)
+        self._host_lr = self._host_lr[lo:hi]
+        self._host_hr = self._host_hr[lo:hi]
+        self._src = {k: v[lo:hi] for k, v in self._src.items()}
+        self._dev = {k: v[lo:hi].clone() for k, v in self._dev.items()}
+        for name, host, tf in (("dense_idx", self._host_dense, None),
+                               ("dense_idx_t", self._host_dense_t,
+                                self.st.n_frames)):
+            blocks = _shard_dense(host, n_shards, vols, self._pooled_shape,
+                                  temporal_frames=tf)
+            m = blocks.shape[0] // n_shards
+            setattr(self, name, torch.from_numpy(
+                blocks[shard * m:(shard + 1) * m]).to(self.device,
+                                                      torch.int64))
+        return True
 
     # lazy device tensors -------------------------------------------------
 
@@ -448,8 +543,8 @@ class TileCreator:
         self._check(generator)
         didx = self._idx(temporal)
         return assemble_pass1(self.lr, self.hrz, didx,
-                              draw(generator, batch, didx, self.st), plane,
-                              temporal, self.st)
+                              draw(generator, batch, didx, self.st_local),
+                              plane, temporal, self.st_local)
 
     def sample_pass2(self, generator: torch.Generator, batch: int,
                      temporal: bool = False, plane: str = "xz") -> dict:
@@ -458,8 +553,8 @@ class TileCreator:
         self._check(generator)
         didx = self._idx(temporal)
         return assemble_pass2(self.lr, self.interm, self.hr, didx,
-                              draw(generator, batch, didx, self.st), plane,
-                              temporal, self.st)
+                              draw(generator, batch, didx, self.st_local),
+                              plane, temporal, self.st_local)
 
     def sample_pass3(self, generator: torch.Generator, batch: int,
                      temporal: bool = False, plane: str = "yz") -> dict:
@@ -468,5 +563,5 @@ class TileCreator:
         self._check(generator)
         didx = self._idx(temporal)
         return assemble_pass3(self.lr, self.final, self.hr, didx,
-                              draw(generator, batch, didx, self.st), plane,
-                              temporal, self.st)
+                              draw(generator, batch, didx, self.st_local),
+                              plane, temporal, self.st_local)

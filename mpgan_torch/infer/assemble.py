@@ -14,27 +14,81 @@ xz slices [d, vx, vz, vy], yz slices [d, vz, vy, vx]. Generators are
 :class:`mpgan_torch.models.generator.Generator` modules that own their
 parameters. :func:`precompute_intermediates` and :func:`precompute_finals`
 sweep a dataset for pass-2 and pass-3 training, and
-:func:`upscale_volume_streamed` assembles pass 2 in host memory. The mesh
-waits for the parallelism slice.
+:func:`upscale_volume_streamed` assembles pass 2 in host memory.
+
+The slice axis is the data-parallel axis (JAX ``:38-55``): with a device
+list (:func:`mpgan_torch.parallel.mesh.make_mesh`) each call's slices are
+split over the devices, each device runs its own replica of the generator
+(:func:`replica`), and the results are gathered on the first device in
+slice order. Per-slice 2D convolutions need no halo exchange.
 """
 
 from __future__ import annotations
+
+import copy
+import weakref
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mpgan_torch.ops.upsample import resize_volume
+from mpgan_torch.parallel.mesh import canonical
+
+# generator → {device: (parameter versions, replica on that device)}
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def apply_sliced(apply_fn, slices: torch.Tensor, chunk: int = 0
-                 ) -> torch.Tensor:
+def replica(gen: torch.nn.Module, device) -> torch.nn.Module:
+    """``gen`` itself on its own device; elsewhere a copy on ``device``,
+    made once and made again when ``gen``'s parameters change in place."""
+    device = canonical(device)
+    params = list(gen.parameters())
+    if canonical(params[0].device) == device:
+        return gen
+    version = tuple(p._version for p in params)
+    per = _REPLICAS.setdefault(gen, {})
+    hit = per.get(device)
+    if hit is None or hit[0] != version:
+        # outside inference mode: a replica must hold ordinary tensors
+        with torch.inference_mode(False), torch.no_grad():
+            per[device] = (version, copy.deepcopy(gen).to(device))
+    return per[device][1]
+
+
+def _per_device(gen, devices, **kw):
+    """The per-slice call of ``gen``: on the replica of the slices' device
+    when a device list is given."""
+    if devices is None or len(devices) <= 1:
+        return lambda x: gen(x, **kw)
+    return lambda x: replica(gen, x.device)(x, **kw)
+
+
+def _split_apply(apply_fn, x: torch.Tensor, devices) -> torch.Tensor:
+    """``apply_fn`` over ``x`` split into one contiguous block per device;
+    every launch is enqueued before any result is gathered, so the
+    devices overlap."""
+    outs = [apply_fn(part.to(dev, non_blocking=True))
+            for part, dev in zip(torch.tensor_split(x, len(devices)),
+                                 devices) if part.shape[0]]
+    return torch.cat([o.to(devices[0], non_blocking=True) for o in outs])
+
+
+def apply_sliced(apply_fn, slices: torch.Tensor, chunk: int = 0,
+                 devices=None) -> torch.Tensor:
     """Run a per-slice model over a (N, H, W, C) slice stack.
 
     chunk = 0 → one batch; otherwise fixed-size chunks, the last one
     zero-padded to the chunk size and trimmed (every call sees one shape),
-    written into one preallocated output.
+    written into one preallocated output. ``devices`` (a list, which may
+    repeat a device) splits each batch over the devices; ``apply_fn`` then
+    takes slices on any of them (:func:`replica`) and the result lies on
+    the first.
     """
+    if devices is not None and len(devices) > 1:
+        devs = [canonical(d) for d in devices]
+        fn = apply_fn
+        apply_fn = lambda x: _split_apply(fn, x, devs)  # noqa: E731
     n = slices.shape[0]
     if chunk <= 0 or chunk >= n:
         return apply_fn(slices)
@@ -53,9 +107,10 @@ def apply_sliced(apply_fn, slices: torch.Tensor, chunk: int = 0
 
 
 def pass1_volume(gen1, lr_vol: torch.Tensor, stage: int | None = None,
-                 chunk: int = 0) -> torch.Tensor:
+                 chunk: int = 0, devices=None) -> torch.Tensor:
     """(Z, Y, X, C) → intermediate (Z, Y·s, X·s, 1) via xy slices."""
-    return apply_sliced(lambda x: gen1(x, stage=stage), lr_vol, chunk)
+    return apply_sliced(_per_device(gen1, devices, stage=stage), lr_vol,
+                        chunk, devices)
 
 
 def _with_velocity(vol: torch.Tensor, lr_vel: torch.Tensor | None,
@@ -69,44 +124,49 @@ def _with_velocity(vol: torch.Tensor, lr_vel: torch.Tensor | None,
 
 
 def pass2_volume(gen2, interm: torch.Tensor, lr_vel: torch.Tensor | None,
-                 stage: int | None = None, chunk: int = 0) -> torch.Tensor:
+                 stage: int | None = None, chunk: int = 0,
+                 devices=None) -> torch.Tensor:
     """Intermediate (Z, Ys, Xs, 1) [+ LR velocity (Z, Y, X, 3)] →
     final (Z·s, Ys, Xs, 1) via xz slices (z-axis refinement)."""
     vol_in = _with_velocity(interm, lr_vel, [0, 2, 1], gen2.dtype)
     slices = vol_in.permute(1, 0, 2, 3)              # (Ys, Z, Xs, C)
-    out = apply_sliced(lambda x: gen2(x, stage=stage), slices, chunk)
+    out = apply_sliced(_per_device(gen2, devices, stage=stage), slices,
+                       chunk, devices)
     return out.permute(1, 0, 2, 3)                   # (Zs, Ys, Xs, 1)
 
 
 def pass3_volume(gen3, vol: torch.Tensor, lr_vel: torch.Tensor | None,
-                 chunk: int = 0) -> torch.Tensor:
+                 chunk: int = 0, devices=None) -> torch.Tensor:
     """Constant-resolution refinement over yz slices of the full-res volume
     (Zs, Ys, Xs, 1); slice channels [d, v_w=vz, v_h=vy, v_out=vx]."""
     vol_in = _with_velocity(vol, lr_vel, [2, 1, 0], gen3.dtype)
     slices = vol_in.permute(2, 1, 0, 3)              # (Xs, Ys, Zs, C)
-    out = apply_sliced(gen3, slices, chunk)
+    out = apply_sliced(_per_device(gen3, devices), slices, chunk, devices)
     return out.permute(2, 1, 0, 3)
 
 
 def upscale_volume(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
                    stage: int | None = None, chunk: int = 0,
-                   gen3=None) -> torch.Tensor:
+                   gen3=None, devices=None) -> torch.Tensor:
     """Full multi-pass SR: (Z, Y, X, C) LR → (Z·s, Y·s, X·s, 1) HR density.
 
     lr_vol channels [d, vx, vy, vz] (or density only). Z = 1 (2D data)
     returns the pass-1 output. gen2=None → pass 1 with a nearest z-repeat
     standing in for pass 2; a pass-3 refiner still runs after it.
+    ``devices`` splits every pass's slices over a device list.
     """
-    interm = pass1_volume(gen1, lr_vol, stage=stage, chunk=chunk)
+    interm = pass1_volume(gen1, lr_vol, stage=stage, chunk=chunk,
+                          devices=devices)
     if lr_vol.shape[0] == 1:
         return interm
     lr_vel = lr_vol[..., 1:4] if lr_vol.shape[-1] >= 4 else None
     if gen2 is None:
         out = interm.repeat_interleave(up_res, dim=0)
     else:
-        out = pass2_volume(gen2, interm, lr_vel, stage=stage, chunk=chunk)
+        out = pass2_volume(gen2, interm, lr_vel, stage=stage, chunk=chunk,
+                           devices=devices)
     if gen3 is not None:
-        out = pass3_volume(gen3, out, lr_vel, chunk=chunk)
+        out = pass3_volume(gen3, out, lr_vel, chunk=chunk, devices=devices)
     return out
 
 
@@ -218,22 +278,23 @@ def _sweep(one, lr_vols: torch.Tensor) -> torch.Tensor:
 
 
 def precompute_intermediates(gen1, lr_vols: torch.Tensor,
-                             stage: int | None = None,
-                             chunk: int = 0) -> torch.Tensor:
+                             stage: int | None = None, chunk: int = 0,
+                             devices=None) -> torch.Tensor:
     """Frozen-G1 sweep over a dataset: (N, Z, Y, X, C) LR volumes →
     (N, Z, Y·s, X·s, 1) float32 intermediate volumes, the pass-2 training
     inputs when G2 trains on G1 outputs (JAX ``:245-261``)."""
-    return _sweep(lambda v: pass1_volume(gen1, v, stage=stage, chunk=chunk),
-                  lr_vols)
+    return _sweep(lambda v: pass1_volume(gen1, v, stage=stage, chunk=chunk,
+                                         devices=devices), lr_vols)
 
 
 def precompute_finals(gen1, gen2, lr_vols: torch.Tensor, up_res: int,
-                      chunk: int = 0) -> torch.Tensor:
+                      chunk: int = 0, devices=None) -> torch.Tensor:
     """Frozen two-pass sweep: (N, Z, Y, X, C) LR → (N, Z·s, Y·s, X·s, 1)
     float32 full-res volumes, the pass-3 training inputs (JAX
     ``:264-275``)."""
     return _sweep(lambda v: upscale_volume(gen1, gen2, v, up_res,
-                                           chunk=chunk), lr_vols)
+                                           chunk=chunk, devices=devices),
+                  lr_vols)
 
 
 def psnr_volume(fake, real, peak: float = 1.0) -> float:

@@ -42,12 +42,18 @@ from mpgan_torch.ops.upsample import upsample_any
 
 def downsample(x: torch.Tensor, fh: int, fw: int) -> torch.Tensor:
     """``jax.image.resize(x, (B, H/fh, W/fw, C), "linear")`` of an NCHW
-    tensor: an antialiased (triangle-filter) linear downsample."""
+    tensor: an antialiased (triangle-filter) linear downsample. The CPU
+    has no half-precision antialiased kernel: there a bf16 or f16 input
+    is filtered in float32 and rounded once, as the CUDA kernel
+    accumulates it."""
     if fh == 1 and fw == 1:
         return x
     h, w = x.shape[-2:]
-    return F.interpolate(x, size=(h // fh, w // fw), mode="bilinear",
-                         align_corners=False, antialias=True)
+    low = x.device.type == "cpu" and x.dtype in (torch.bfloat16,
+                                                 torch.float16)
+    out = F.interpolate(x.float() if low else x, size=(h // fh, w // fw),
+                        mode="bilinear", align_corners=False, antialias=True)
+    return out.to(x.dtype)
 
 
 def downsample_nhwc(x: torch.Tensor, fh: int, fw: int) -> torch.Tensor:

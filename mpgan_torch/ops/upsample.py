@@ -13,21 +13,88 @@ The one-shot ``s×`` upsample (the generator's global skip) is NOT iterated
 
 The JAX package's ``upsample_mode``/``skip_mode`` knobs choose among XLA
 lowerings that are all numerically equal; the port computes one way.
+
+Its backward is not ``F.interpolate``'s: on CUDA that one scatters with
+atomics, so a training run does not reproduce bit for bit. The reference
+computes the upsample as a fixed-weight convolution whose backward is a
+convolution too (``linear_up2_conv``, ``linear_up_conv``);
+:class:`_Upsample` gives the forward its exact adjoint as slice-and-add
+arithmetic along each axis, which sums every gradient in one fixed order.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 
+@functools.lru_cache(maxsize=32)
+def _adjoint_weights(s: int, device: torch.device, dtype: torch.dtype
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(near, far) tap weights of the ``s`` output phases: phase ``r`` of
+    input sample ``i`` reads position ``i + d``, ``d = (r + 0.5)/s − 0.5``,
+    with weight ``1 − |d|`` on ``i`` and ``|d|`` on ``i + sign(d)``. Made
+    once per device: a per-call host→device copy would synchronise."""
+    d = [(r + 0.5) / s - 0.5 for r in range(s)]
+    return (torch.tensor([1.0 - abs(v) for v in d], dtype=dtype,
+                         device=device),
+            torch.tensor([abs(v) for v in d], dtype=dtype, device=device))
+
+
+def _adjoint_axis(g: torch.Tensor, s: int, dim: int) -> torch.Tensor:
+    """The adjoint of the ``s``-fold half-pixel, edge-clamped linear
+    upsample along ``dim`` (size n·s → n), in a fixed order: each output
+    phase's near tap lands on its own sample and its far tap one sample
+    up (d > 0) or down (d < 0); a far tap past an edge folds onto the edge
+    sample, as the forward clamps it."""
+    if s == 1:
+        return g
+    n = g.shape[dim] // s
+    gv = g.unflatten(dim, (n, s))
+    near_w, far_w = _adjoint_weights(s, g.device, g.dtype)
+    shape = [1] * gv.dim()
+    shape[dim + 1] = s
+    out = (gv * near_w.view(shape)).sum(dim + 1)
+    far = gv * far_w.view(shape)
+    # phases r < s/2 read down (d < 0), the rest up (d ≥ 0)
+    down = far.narrow(dim + 1, 0, s // 2).sum(dim + 1)
+    up = far.narrow(dim + 1, s // 2, s - s // 2).sum(dim + 1)
+    out.narrow(dim, 1, n - 1).add_(up.narrow(dim, 0, n - 1))
+    out.narrow(dim, n - 1, 1).add_(up.narrow(dim, n - 1, 1))
+    out.narrow(dim, 0, n - 1).add_(down.narrow(dim, 1, n - 1))
+    out.narrow(dim, 0, 1).add_(down.narrow(dim, 0, 1))
+    return out
+
+
+class _Upsample(torch.autograd.Function):
+    """``F.interpolate`` forward; the fixed-order adjoint backward (float32
+    sums for half-precision gradients). The backward is made of
+    differentiable ops, so a double backward goes through it."""
+
+    @staticmethod
+    def forward(ctx, x, fh, fw):
+        ctx.factors = (fh, fw)
+        h, w = x.shape[-2:]
+        return F.interpolate(x, size=(h * fh, w * fw), mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        fh, fw = ctx.factors
+        acc = (torch.float32 if g.dtype in (torch.float16, torch.bfloat16)
+               else g.dtype)
+        gx = _adjoint_axis(_adjoint_axis(g.to(acc), fw, 3), fh, 2)
+        return gx.to(g.dtype), None, None
+
+
 def upsample_nchw(x: torch.Tensor, fh: int, fw: int) -> torch.Tensor:
-    """One-shot ``(fh, fw)`` linear upsample of an NCHW tensor."""
+    """One-shot ``(fh, fw)`` linear upsample of an NCHW tensor, with the
+    fixed-order backward."""
     if fh == 1 and fw == 1:
         return x
-    h, w = x.shape[-2:]
-    return F.interpolate(x, size=(h * fh, w * fw), mode="bilinear",
-                         align_corners=False)
+    return _Upsample.apply(x, fh, fw)
 
 
 def upsample_2d(x: torch.Tensor, fh: int, fw: int,

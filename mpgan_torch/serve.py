@@ -288,18 +288,25 @@ def make_upscaler(chain, device=None, up_res: int = 4, chunk: int = 0):
 
     Runs under ``torch.inference_mode`` in the generators' own dtype (bf16
     or f32 per ``cfg.model.dtype``) and returns the result on the device
-    without waiting for it; the server fetches it outside its lock."""
+    without waiting for it; the server fetches it outside its lock. On a
+    card every visible card takes a share of each pass's slices (JAX
+    ``mpgan_tpu/infer/load.py:133-144``); ``CUDA_VISIBLE_DEVICES``
+    limits them."""
     from mpgan_torch.device import resolve_device
     from mpgan_torch.infer import assemble
+    from mpgan_torch.parallel import mesh as pmesh
 
     dev = resolve_device(device)
     gen1, gen2, gen3 = chain
+    devices = (pmesh.make_mesh() if dev.type == "cuda"
+               and torch.cuda.device_count() > 1 else None)
 
     def upscale(lr: np.ndarray) -> torch.Tensor:
         lr_t = torch.tensor(np.asarray(lr, dtype=np.float32), device=dev)
         with torch.inference_mode():
             return assemble.upscale_volume(gen1, gen2, lr_t, up_res,
-                                           chunk=chunk, gen3=gen3)
+                                           chunk=chunk, gen3=gen3,
+                                           devices=devices)
 
     return upscale
 

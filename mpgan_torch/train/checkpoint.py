@@ -24,9 +24,12 @@ serves export, training, inference and serving.
 
 Every save is atomic and overwrite-safe (JAX ``:89-109``, ``:196-208``): a
 directory is written under a ``.tmp`` name and renamed into place, and a
-sidecar is written to ``.tmp`` and moved with ``os.replace``. The
-multi-process paths (``host_leaf``, the broadcasts) wait for the
-parallelism slice.
+sidecar is written to ``.tmp`` and moved with ``os.replace``.
+
+In a data-parallel run (JAX ``:25-52``, ``:82-110``) rank 0 allocates the
+run dir and broadcasts its index (:func:`next_run_dir`); only the lead
+writes checkpoints, sidecars, metrics and previews (its callers gate on
+:func:`mpgan_torch.parallel.mesh.is_lead`), and every rank restores.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Any
 import torch
 
 from mpgan_torch import convert
+from mpgan_torch.parallel import mesh as pmesh
 
 STATE_FILE = "state.pt"
 GEN_FILE = "params.npz"
@@ -60,11 +64,15 @@ def run_dir(base: str, index: int) -> str:
 
 def next_run_dir(base: str) -> str:
     """Create and return the next free ``test_%04d`` run dir under base
-    (JAX ``:25-52``, the single-process branch)."""
-    os.makedirs(base, exist_ok=True)
-    path = run_dir(base, max(_indices(base, "test"), default=-1) + 1)
-    os.makedirs(path)
-    return path
+    (JAX ``:25-52``). In a process group only rank 0 lists and creates it
+    (ranks listing one shared ``base`` would race to one index), and
+    every rank returns the index it broadcasts."""
+    idx = -1
+    if pmesh.is_lead():
+        os.makedirs(base, exist_ok=True)
+        idx = max(_indices(base, "test"), default=-1) + 1
+        os.makedirs(run_dir(base, idx))
+    return run_dir(base, pmesh.broadcast_int(idx))
 
 
 def latest_run_idx(base: str) -> int | None:

@@ -52,7 +52,21 @@ made the NaN: here the first update whose loss or gradient is not finite
 is named, and NaNs that stay inside a forward pass without reaching a
 loss or gradient go unseen.
 
-Not ported yet: sharded residency and data parallelism.
+Data parallelism (JAX ``:108-147``, ``:451-469``, ``:591-600``): inside a
+process group (:mod:`mpgan_torch.parallel.mesh`) every rank trains its
+rows of the global batch on its own card with replicated state. Each
+update all-reduces the gradients (each rank's weighted by its share of the
+rows) before the optimizer step, and each step's metrics, so that every
+rank holds the global-batch values. The nets and the EMA are replicated
+(broadcast from rank 0 and checked) at start, after a growth-stage rebuild
+and after a restore. Residency is sharded (:meth:`TileCreator.shard_over`:
+each rank holds its block of whole sims and draws ``batch/world`` rows
+with a generator seeded from the run seed, the iteration and its rank)
+when the sim count and the batch divide over the ranks; otherwise
+(``shard_data=False`` forces it) every rank draws the global batch with
+the iteration's generator and keeps its rows, so that a run over several
+ranks equals a one-process run at the same global batch up to the order
+of float sums.
 """
 
 from __future__ import annotations
@@ -75,6 +89,7 @@ from mpgan_torch.models import discriminator as D
 from mpgan_torch.models import generator as G
 from mpgan_torch.models import growing
 from mpgan_torch.ops import warp_kernel
+from mpgan_torch.parallel import mesh as pmesh
 from mpgan_torch.train import checkpoint as ckpt
 from mpgan_torch.train import losses
 from mpgan_torch.utils.liveness import touch_heartbeat
@@ -147,15 +162,30 @@ def aligned_reals(batch: dict, pass_no: int, stage: int, up_res: int,
 
 
 def make_sampler(tc: TileCreator, pass_no: int, batch_size: int,
-                 temporal: bool) -> Callable[[torch.Generator], dict]:
-    """Batch-sampling closure: ``sample(generator) → batch dict``."""
-    if pass_no == 1:
-        return lambda rng: tc.sample_pass1(rng, batch_size, temporal)
-    if pass_no == 2:
-        return lambda rng: tc.sample_pass2(rng, batch_size, temporal)
-    if pass_no == 3:
-        return lambda rng: tc.sample_pass3(rng, batch_size, temporal)
-    raise ValueError(f"there is no pass {pass_no}")
+                 temporal: bool, data_sharded: bool = False,
+                 n_ranks: int = 1, rank: int = 0
+                 ) -> Callable[[torch.Generator], dict]:
+    """Batch-sampling closure: ``sample(generator) → batch dict``, this
+    rank's rows of the ``batch_size`` global batch.
+
+    With ``data_sharded`` (sharded residency) the rank draws its
+    ``batch_size/n_shards`` rows from its own volume block, with a
+    generator its caller seeds per rank (JAX: the key folded with the mesh
+    axis index); otherwise it draws the global batch and keeps its rows
+    (:func:`mpgan_torch.parallel.mesh.shard_rows`)."""
+    draws = {1: tc.sample_pass1, 2: tc.sample_pass2, 3: tc.sample_pass3}
+    if pass_no not in draws:
+        raise ValueError(f"there is no pass {pass_no}")
+    draw = draws[pass_no]
+    if data_sharded:
+        if batch_size % tc.n_shards:
+            raise ValueError(f"batchSize {batch_size} must divide over the "
+                             f"{tc.n_shards}-device mesh for sharded "
+                             "residency")
+        local = batch_size // tc.n_shards
+        return lambda rng: draw(rng, local, temporal)
+    return lambda rng: pmesh.shard_rows(draw(rng, batch_size, temporal),
+                                        n_ranks, rank)
 
 
 def _make_opt(cfg: Config, params, disc: bool,
@@ -182,17 +212,22 @@ def _load_opt(opt: torch.optim.Optimizer, sd: dict) -> None:
 
 
 def _update(opt: torch.optim.Optimizer, params: list[torch.Tensor],
-            loss: torch.Tensor, nan_check: str | None = None) -> None:
+            loss: torch.Tensor, nan_check: str | None = None,
+            share: float | None = None) -> None:
     """Backward into ``params`` only, then one optimizer step. A parameter
     the loss does not reach gets a zero gradient (optax updates it too).
-    With ``nan_check`` (a name for the update), a non-finite loss or
-    gradient raises ``FloatingPointError`` before the step."""
+    Inside a process group the gradients are first all-reduced, each
+    rank's weighted by ``share``, its fraction of the global batch. With
+    ``nan_check`` (a name for the update), a non-finite loss or gradient
+    raises ``FloatingPointError`` before the step."""
     for p in params:
         p.grad = None
     loss.backward(inputs=params)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if share is not None:
+        pmesh.all_reduce_mean([p.grad for p in params], share)
     if nan_check is not None:
         finite = torch.stack([torch.isfinite(loss).all()] + [
             torch.isfinite(p.grad).all() for p in params]).all()
@@ -228,7 +263,8 @@ class TrainStep:
     """
 
     def __init__(self, cfg: Config, tc: TileCreator, rt: StageRuntime,
-                 fade: bool, pass_no: int, n_stages: int):
+                 fade: bool, pass_no: int, n_stages: int,
+                 data_sharded: bool = False):
         lcfg = cfg.loss
         self.cfg, self.rt, self.fade, self.pass_no = cfg, rt, fade, pass_no
         self.temporal = rt.dt is not None
@@ -244,8 +280,16 @@ class TrainStep:
         # Ds conditioning upsample factors (per axis) for this pass; pass 3
         # is a constant-resolution refiner
         self.cond_f = {1: (s_in, s_in), 2: (s_in, 1), 3: (1, 1)}[pass_no]
-        self.sample = make_sampler(tc, pass_no, cfg.train.batch_size,
-                                   self.temporal)
+        # data parallelism: this rank's rows of the global batch, and its
+        # share of the gradient and metric means (None outside a group)
+        b, n_ranks, rank = cfg.train.batch_size, pmesh.world(), pmesh.rank()
+        self.sample = make_sampler(tc, pass_no, b, self.temporal,
+                                   data_sharded, n_ranks, rank)
+        lo, hi = ((0, b // n_ranks) if data_sharded
+                  else pmesh.row_range(b, n_ranks, rank))
+        # WGAN-GP draws ε for the rows the rank's generator draws, keeps its
+        self.eps_rows = (b // n_ranks if data_sharded else b, lo, hi)
+        self.share = (hi - lo) / b if pmesh.distributed() else None
         self.device = tc.device
         self.use_kernel = losses.use_warp_kernel(lcfg.warp_backend,
                                                  self.device)
@@ -315,11 +359,12 @@ class TrainStep:
             loss = loss + 0.5 * lcfg.r1_gamma * k * losses.r1_penalty(
                 disc, real)
         if lcfg.gp_weight > 0:
-            eps = torch.rand((real.shape[0], 1, 1, 1), generator=rng,
-                             device=real.device)
+            n, lo, hi = self.eps_rows
+            eps = torch.rand((n, 1, 1, 1), generator=rng,
+                             device=real.device)[lo:hi]
             loss = loss + lcfg.gp_weight * losses.gradient_penalty(
                 disc, real, fake, eps)
-        _update(opt, params, loss, self._nan_check(what))
+        _update(opt, params, loss, self._nan_check(what), self.share)
         return loss.detach()
 
     def _d_run(self, rng, alpha):
@@ -358,7 +403,7 @@ class TrainStep:
             fake = self._gen(x_in, alpha)
         l_l1 = losses.l1_loss(fake, hr)
         aux = dict(g_adv=0.0, l1=l_l1.detach(), feat=0.0, g_t=0.0,
-                   psnr=losses.psnr(fake.detach(), hr))
+                   psnr=losses.mse(fake.detach(), hr))   # → PSNR in __call__
         if self.pure_l1:
             total = lcfg.lambda_l1 * l_l1
         else:
@@ -383,7 +428,8 @@ class TrainStep:
                      + lcfg.lambda_f * l_f + lcfg.lambda_t * l_t)
             aux.update(g_adv=l_adv.detach(), feat=l_f.detach(),
                        g_t=l_t.detach() if self.temporal else 0.0)
-        _update(rt.opt_g, self.g_params, total, self._nan_check("G"))
+        _update(rt.opt_g, self.g_params, total, self._nan_check("G"),
+                self.share)
         return total.detach(), aux
 
     # ---------------------------------------------------------------- step
@@ -411,7 +457,18 @@ class TrainStep:
                 raise RuntimeError(
                     f"warp kernels launched (forward, backward) {got} times "
                     f"in a step, expected {want}")
-        return dict(d_loss=loss_ds, dt_loss=loss_dt, g_loss=loss_g, **aux)
+        metrics = dict(d_loss=loss_ds, dt_loss=loss_dt, g_loss=loss_g,
+                       **aux)
+        if self.share is not None:
+            # every rank holds the global batch's values, as JAX's
+            # replicated metrics; the PSNR is that of the global MSE
+            keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+            vals = torch.stack([metrics[k].float() for k in keys])
+            pmesh.all_reduce_mean([vals], self.share)
+            metrics.update(zip(keys, vals.unbind()))
+        if torch.is_tensor(metrics.get("psnr")):
+            metrics["psnr"] = losses.psnr_from_mse(metrics["psnr"])
+        return metrics
 
 
 def read_metrics(metrics: dict) -> dict[str, float]:
@@ -424,12 +481,13 @@ def read_metrics(metrics: dict) -> dict[str, float]:
     return {k: out[k] for k in metrics}
 
 
-def _step_seed(seed: int, it: int) -> int:
+def _step_seed(seed: int, it: int, rank: int | None = None) -> int:
     """The seed of iteration ``it``'s sampling stream: a function of the
     run seed and the iteration alone, so that a resume draws what an
-    uninterrupted run draws."""
-    return int(np.random.SeedSequence([seed, it]).generate_state(
-        1, np.uint64)[0])
+    uninterrupted run draws; with ``rank`` (sharded residency) of the rank
+    too, so that each rank draws its own rows."""
+    key = [seed, it] if rank is None else [seed, it, rank]
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
 
 
 class Trainer:
@@ -439,16 +497,25 @@ class Trainer:
     CUDA unless the caller asks for the CPU, and must be the tile
     creator's. Initial weights are drawn as flax draws them (lecun-normal
     kernels, zero biases) from a CPU generator seeded with ``randSeed``.
+    Inside a process group the trainer is one rank of a data-parallel run
+    (module docstring); ``shard_data=False`` keeps residency whole.
     """
 
     def __init__(self, cfg: Config, tc: TileCreator, device=None,
-                 pass_no: int | None = None):
+                 pass_no: int | None = None, shard_data: bool = True):
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)
         if tc.device != self.device:
             raise ValueError(f"the tile creator's volumes are on {tc.device}, "
                              f"the trainer runs on {self.device}")
+        n_ranks = pmesh.world()
+        if shard_data and n_ranks > 1 and cfg.train.batch_size % n_ranks:
+            print(f"  batchSize {cfg.train.batch_size} does not divide over "
+                  f"{n_ranks} ranks; dataset residency stays replicated")
+            shard_data = False
+        self.data_sharded = bool(shard_data and n_ranks > 1
+                                 and tc.shard_over(n_ranks, pmesh.rank()))
         self.pass_no = pass_no if pass_no is not None else (
             1 if cfg.train.first_gen_run else 2)
         if self.pass_no not in (1, 2, 3):
@@ -532,9 +599,10 @@ class Trainer:
                     if dt is not None else None),
             ema=ema, step=prev.step if prev is not None else 0)
         rt.step_fade = TrainStep(cfg, self.tc, rt, True, self.pass_no,
-                                 self.n_stages)
+                                 self.n_stages, self.data_sharded)
         rt.step_stable = TrainStep(cfg, self.tc, rt, False, self.pass_no,
-                                   self.n_stages)
+                                   self.n_stages, self.data_sharded)
+        replicate_state(rt)
         return rt
 
     def runtime(self, start_it: int = 0) -> StageRuntime:
@@ -563,17 +631,21 @@ class Trainer:
              total_iters: int | None = None) -> None:
         """Checkpoint ``no`` of run dir ``run`` at iteration ``it``: the
         train state as ``model_%04d`` with its sidecar, the generator as
-        ``gen_%04d`` and, with an EMA, ``gen_ema_%04d``."""
+        ``gen_%04d`` and, with an EMA, ``gen_ema_%04d``. In a process
+        group the lead writes (the state is replicated) and every rank
+        returns once the files are in place."""
         rt = self.runtime()
         gen_meta = dict(stage=rt.stage, pass_no=self.pass_no,
                         up_res=self.tc.up_res)
         meta = dict(it=it, **gen_meta)
         if total_iters is not None:
             meta["total_iters"] = total_iters
-        ckpt.save(run, no, self.state(), meta)
-        ckpt.save_gen(run, no, rt.gen.state_dict(), gen_meta)
-        if rt.ema:
-            ckpt.save_gen(run, no, rt.ema, gen_meta, prefix="gen_ema")
+        if pmesh.is_lead():
+            ckpt.save(run, no, self.state(), meta)
+            ckpt.save_gen(run, no, rt.gen.state_dict(), gen_meta)
+            if rt.ema:
+                ckpt.save_gen(run, no, rt.ema, gen_meta, prefix="gen_ema")
+        pmesh.barrier()
 
     def restore(self, run_dir: str, model_no: int) -> int:
         """Resume from checkpoint ``model_no`` of ``run_dir`` (JAX
@@ -613,6 +685,7 @@ class Trainer:
             for k, v in rt.ema.items():
                 v.copy_(saved[k])
         rt.step = int(state["step"])
+        replicate_state(rt, optimizers=True)
         return int(meta.get("it", 0))
 
     # ------------------------------------------------------------------ fit
@@ -656,7 +729,9 @@ class Trainer:
                 stage, alpha = self.n_stages, 1.0
             fade = alpha < 1.0 and stage > 1
             fn = self.rt.step_fade if fade else self.rt.step_stable
-            rng.manual_seed(_step_seed(cfg.train.rand_seed, it))
+            rng.manual_seed(_step_seed(cfg.train.rand_seed, it,
+                                       pmesh.rank() if self.data_sharded
+                                       else None))
             metrics = fn(alpha, rng)
             it += 1
             touch_heartbeat()
@@ -680,6 +755,23 @@ class Trainer:
             last["steps_per_dispatch"] = 1
         touch_heartbeat()  # the watchdog's clock restarts for the final save
         return last
+
+
+def replicate_state(rt: StageRuntime, optimizers: bool = False) -> None:
+    """Inside a process group, give every rank rank 0's nets, EMA (and
+    with ``optimizers`` the optimizer moments and steps), checked bit for
+    bit (:func:`mpgan_torch.parallel.mesh.replicate`)."""
+    if not pmesh.distributed():
+        return
+    nets = [n for n in (rt.gen, rt.ds, rt.dt) if n is not None]
+    tensors = [t for n in nets for t in n.state_dict().values()]
+    tensors += list(rt.ema.values())
+    if optimizers:
+        for opt in (rt.opt_g, rt.opt_ds, rt.opt_dt):
+            if opt is not None:
+                tensors += [v for st in opt.state.values()
+                            for v in st.values() if torch.is_tensor(v)]
+    pmesh.replicate(tensors)
 
 
 def _inject_fault_once(it: int) -> None:

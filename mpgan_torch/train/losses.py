@@ -97,10 +97,17 @@ def feature_loss(feats_real: list[torch.Tensor],
     return total
 
 
+def mse(fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+    return torch.mean((fake - real) ** 2)
+
+
+def psnr_from_mse(err: torch.Tensor, peak: float = 1.0) -> torch.Tensor:
+    return 10.0 * torch.log10(peak ** 2 / torch.clamp(err, min=1e-12))
+
+
 def psnr(fake: torch.Tensor, real: torch.Tensor,
          peak: float = 1.0) -> torch.Tensor:
-    mse = torch.mean((fake - real) ** 2)
-    return 10.0 * torch.log10(peak ** 2 / torch.clamp(mse, min=1e-12))
+    return psnr_from_mse(mse(fake, real), peak)
 
 
 def use_warp_kernel(backend: str, device: torch.device) -> bool:

@@ -8,8 +8,8 @@ chain ``load_pass_chain`` loads; ``useEma`` falls back, ``writeTest``
 skips done frames; ``resumeIndex`` and ``resumeLatest`` find finished
 runs, ``resumeTest`` continues one and ``warmStartTest`` starts from its
 generator; ``pass2Source g1`` and ``trainPass 3 pass3Source model`` train, and
-a 3-pass ``out 1`` runs; unknown flags, unported multi-host flags and the
-supervisor on a multi-host job abort. TensorBoard
+a 3-pass ``out 1`` runs; unknown flags, incomplete multi-host flags and
+the supervisor on a multi-host job abort. TensorBoard
 mirroring is switched off (its import costs seconds here).
 """
 
@@ -214,6 +214,7 @@ def test_pass2_g1_and_pass3_model_train_then_three_pass_out1(trained,
                  id="retryOnError 1-retryOnError"),
     pytest.param("hangTimeout 30 coordinator localhost:1234", "hangTimeout",
                  id="hangTimeout 30-hangTimeout"),
+    # a multi-host job needs both the coordinator and the process count
     ("coordinator localhost:1234", "coordinator"),
     ("numProcesses 2", "numProcesses"),
     ("pass2Source hr", "pass2Source"),
