@@ -8,16 +8,24 @@ exit, and no result line:
 
 1. build    nvcc builds every kernel of the port from csrc/ (in parallel)
 2. warp     every warp kernel vs its plain version on the card, at B=16
-            64² (the trainer's shape, one block per image in the
-            backward) and B=256 256² (tiled backward), velocity scales
-            1.5, 12 (beyond the ±8 clamp) and 0: the single-field and the
-            triplet forward (max |Δ| ≤ 1e-5); the gradients of every input
-            through advect_2d_fast and align_triplet_fast and the field
-            gradients as the train step asks for them (1e-4); each
-            kernel's time against its plain version, a library call
-            (grid_sample, grid_sampler_2d_backward) and its bound; each
-            kernel's ms per call is the median of 5 windows, with their
-            min and max
+            64² (the trainer's shape: 16x32 backward tiles, 128 blocks)
+            and B=256 256² (64x64 tiles for one field, 32x64 for a
+            triplet), velocity scales 1.5, 12 (beyond the ±8 clamp) and
+            0: the single-field and the triplet forward (max |Δ| ≤ 1e-5);
+            the gradients of every input through advect_2d_fast and
+            align_triplet_fast, the field gradients as the train step asks
+            for them and the velocity gradient alone (1e-4); each backward
+            called 5 times with both gradients asked for, bit for bit
+            equal; a clamp of 40 cells at B=4 256² (windows staged in
+            chunks), 1e-4 and bit for bit; g scaled by 1e-20 and 1e+20 and
+            g all zero (the fixed-point exponent's ends) through both
+            backwards, 5 calls bit for bit equal and within 1e-4 times the
+            scale of the plain version; each kernel's time against its
+            plain version, a library call (grid_sample,
+            grid_sampler_2d_backward) and its bound; each kernel's ms per
+            call is the median of 5 windows, with their min and max,
+            beside the host µs per call of its wrapper (perf_counter over
+            1000 back-to-back calls, one synchronise)
 2b single  advect_2d_fast forward and backward at B=16 64², the launch
             counts reset just before and read just after: 1 and 1
 3. bundled  the exported 4x L1 pair on sim_1010c frame 12 (32³→128³): f32
@@ -102,17 +110,20 @@ exit, and no result line:
             then with `hangTimeout 5` and MPGAN_HANG_ONCE; each exits 0 with
             its final checkpoint in the run dir it owned
 11c repro   8b's float32 setting (hinge, lrgan 1, lrdisc 1e-2, TF32 off),
-            4 steps, 3 pairs of runs in each of six ways. Four with the
+            4 steps, 3 pairs of runs in each of seven ways. Four with the
             generator's upsample backward as F.interpolate's own
             (atomics; the port's earlier backward): as it was; with the
             triplet backward kernel swapped for its plain version (the
             autograd of align_triplet_ref under deterministic
             algorithms); with cudnn.deterministic on and
             cudnn.benchmark off; with both.
-            Two with the port's fixed-order upsample backward: alone, and
-            with the other two swaps (all_three). Prints each way's
-            largest and median parameter gap between the runs of a pair.
-            Reports, does not gate
+            Three with the port's fixed-order upsample backward: alone,
+            with the other two swaps (all_three), and with cuDNN's
+            deterministic mode and the triplet backward kernel
+            (kernel_bwd_deterministic: its fixed-point sums). Prints each
+            way's largest and median parameter gap between the runs of a
+            pair; asserts kernel_bwd_deterministic's are 0 in every pair,
+            reports the others
 12 datagen  the data path on the card: (a) one solver step at 64³ with a
             sphere obstacle and MacCormack, Jacobi and CG, on the card and
             on the CPU from the same inputs (Jacobi 1e-5: no reduction, only
@@ -227,6 +238,30 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters=1000, warmup=10):
+    """Host µs per call of ``fn()``: perf_counter over ``iters``
+    back-to-back calls after ``warmup``, with one synchronise at the end."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e6
+
+
+def repeat_equal(fn, n=5):
+    """``fn()`` (a tuple of tensors or None) called ``n`` times gives the
+    same bits every time; → the first call's outputs."""
+    runs = [fn() for _ in range(n)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, z in zip(run, runs[0]):
+            assert (a is None and z is None) or torch.equal(a, z)
+    return runs[0]
+
+
 def warp_inputs(b, h, w, vscale, seed, dev):
     """prev, cur, nxt (B, H, W, 1), vel (B, H, W, 2) and a gradient of the
     (B, H, W, 3) triplet with NCHW strides, as Dt's backward hands it
@@ -296,6 +331,70 @@ def warp_checks(wk, b, h, w, vscale, dev):
     e = max(gap(got, ref), gap([d_prev, d_nxt], [ref[0], ref[2]]))
     assert e <= 1e-4, ("warp2d_triplet_bwd", b, h, w, vscale, e)
     err["warp2d_triplet_bwd"] = e
+    # the velocity gradient alone (its own instantiation of the kernel)
+    _, _, d_vel = wk.align_triplet_kernel_bwd(gy, p, n, v, field_grads=False,
+                                              vel_grad=True)
+    torch.cuda.synchronize()
+    e = gap([d_vel], ref[3:])
+    assert e <= 1e-4, ("warp2d_triplet_bwd vel", b, h, w, vscale, e)
+    err["warp2d_triplet_bwd"] = max(e, err["warp2d_triplet_bwd"])
+    # each backward, both gradients asked for, bit for bit over 5 calls
+    for dt in (1.0, -1.0):
+        repeat_equal(lambda: wk.advect_2d_kernel_bwd(g1, p, v, dt,
+                                                     vel_grad=True))
+    repeat_equal(lambda: wk.align_triplet_kernel_bwd(gy, p, n, v,
+                                                     vel_grad=True))
+    return err
+
+
+def warp_chunk_check(wk, dev):
+    """Both backwards with a clamp of 40 cells at B=4 256²: windows too
+    large for one staged chunk, their max read from device memory; within
+    1e-4 of the plain version, bit for bit over 5 calls. → max abs error."""
+    p, c, n, v, gy = warp_inputs(4, 256, 256, 4.0, 6, dev)
+    g1 = gy[..., :1]
+    got = repeat_equal(lambda: wk.advect_2d_kernel_bwd(g1, p, v, 1.0, 40))
+    ref_in = [p.clone().requires_grad_()]
+    ref = torch.autograd.grad(wk.advect_2d_clamped_ref(ref_in[0], v, 1.0, 40),
+                              ref_in, g1)
+    e1 = gap(got[:1], ref)
+    got = repeat_equal(lambda: wk.align_triplet_kernel_bwd(gy, p, n, v, 40))
+    ref_in = [t.clone().requires_grad_() for t in (p, n)]
+    ref = torch.autograd.grad(
+        wk.align_triplet_ref(ref_in[0], c, ref_in[1], v, 40), ref_in, gy)
+    e3 = gap(got[:2], ref)
+    assert max(e1, e3) <= 1e-4, ("chunked windows", e1, e3)
+    return max(e1, e3)
+
+
+def warp_exponent_checks(wk, b, h, w, dev):
+    """Both backwards on g scaled by 1e-20 and 1e+20 and on g all zero, the
+    ends of the fixed-point exponent: 5 calls bit for bit equal, and every
+    gradient within 1e-4 times the scale of the plain version's (zero: 0).
+    → max abs error over the scale, per kernel."""
+    p, c, n, v, gy = warp_inputs(b, h, w, 1.5, 5, dev)
+    err = {"warp2d_bwd": 0.0, "warp2d_triplet_bwd": 0.0}
+    for scale in (1e-20, 1e20, 0.0):
+        g3 = gy * scale
+        g1 = g3[..., :1]
+        got = repeat_equal(lambda: wk.advect_2d_kernel_bwd(
+            g1, p, v, -1.0, vel_grad=True))
+        ref_in = [t.clone().requires_grad_() for t in (p, v)]
+        ref = torch.autograd.grad(
+            wk.advect_2d_clamped_ref(*ref_in, -1.0), ref_in, g1)
+        e = gap(got, ref)
+        assert e <= 1e-4 * scale, ("warp2d_bwd", b, h, w, scale, e)
+        err["warp2d_bwd"] = max(err["warp2d_bwd"], e / (scale or 1.0))
+        got = repeat_equal(lambda: wk.align_triplet_kernel_bwd(
+            g3, p, n, v, vel_grad=True))
+        ref_in = [t.clone().requires_grad_() for t in (p, n, v)]
+        ref = torch.autograd.grad(
+            wk.align_triplet_ref(ref_in[0], c, ref_in[1], ref_in[2]),
+            ref_in, g3)
+        e = gap(got, ref)
+        assert e <= 1e-4 * scale, ("warp2d_triplet_bwd", b, h, w, scale, e)
+        err["warp2d_triplet_bwd"] = max(err["warp2d_triplet_bwd"],
+                                        e / (scale or 1.0))
     return err
 
 
@@ -385,19 +484,29 @@ def warp_times(wk, b, h, w, iters, dev):
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / F32_FLOPS else "operations"),
             "library_max_abs_err": lib_err[name],
+            "host_us_per_call": host_us(kern),
+            "library_host_us_per_call": host_us(lib),
         }
-        if lib_fb is not None:
+        if lib_fb is not None:  # a backward: its repeat check held
             out[name]["library_fwd_bwd_ms"] = cuda_ms(lib_fb, iters)
+            out[name]["deterministic"] = True
     return out
 
 
 def phase_warp(dev, wk):
     t0 = phase("2 warp kernels vs plain")
     err = {k: 0.0 for k in WARP_KERNELS}
+    exp_err = {}
     for b, h, w, _ in WARP_SHAPES:
         for vscale in (1.5, 12.0, 0.0):
             for k, e in warp_checks(wk, b, h, w, vscale, dev).items():
                 err[k] = max(err[k], e)
+        for k, e in warp_exponent_checks(wk, b, h, w, dev).items():
+            exp_err[k] = max(exp_err.get(k, 0.0), e)
+    print("   exponent ends, max |Δ| / scale " + json.dumps(exp_err),
+          flush=True)
+    print(f"   chunked windows (clamp 40) max |Δ| {warp_chunk_check(wk, dev)}",
+          flush=True)
     times = {}
     for b, h, w, iters in WARP_SHAPES:
         for name, t in warp_times(wk, b, h, w, iters, dev).items():
@@ -1234,7 +1343,11 @@ REPRO_WAYS = {
     "both": (True, True, True),
     "fixed_upsample_bwd": (False, False, False),
     "all_three": (False, True, True),
+    "kernel_bwd_deterministic": (False, False, True),
 }
+# the way whose every pair must reproduce bit for bit: the fixed-order
+# upsample backward, the triplet backward kernel, cuDNN deterministic
+REPRO_GATED = "kernel_bwd_deterministic"
 REPRO_PAIRS = 3
 
 
@@ -1300,6 +1413,10 @@ def phase_repro(dev, wk):
             torch.backends.cudnn.allow_tf32 = True
             torch.backends.cuda.matmul.allow_tf32 = True
     print("   repro " + json.dumps(res), flush=True)
+    gated = res[REPRO_GATED]
+    assert gated["largest"] == 0.0, (REPRO_GATED, gated)
+    # the kernel ran in every run (the step checks its own 3 + 1 launches)
+    assert gated["warp_bwd_kernel_launches"] >= 2 * REPRO_PAIRS, gated
     done(t0, **{k: f"{v['largest']:.3g}/{v['median']:.3g}"
                 for k, v in res.items()})
     return res
@@ -1789,7 +1906,7 @@ def main():
         entry.update(small)
         entry["large"] = large
         kernels.append(entry)
-    kernels[0]["build_s"] = build_s
+    kernels[0].update(build_s=build_s, stream_source=wk.STREAM_SOURCE)
     kernels[2].update(launches_per_train_step=train["warp_launches_per_step"],
                       launches_align=align_launches,
                       launches_pass2=train["pass2"]["warp_launches"],

@@ -38,13 +38,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     "warp": {
-        "mpgan_warp2d": (_I, [_P, _P, _P, _I, _I, _I, _F, _F, _P]),
+        "mpgan_warp2d": (_I, [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P]),
         "mpgan_warp2d_triplet": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                      _P]),
+                                      _I, _P]),
         "mpgan_warp2d_bwd": (_I, [_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I,
-                                  _F, _F, _P]),
+                                  _I, _I, _F, _F, _I, _P]),
         "mpgan_warp2d_triplet_bwd": (_I, [_P, _L, _L, _L, _L, _P, _P, _P, _P,
-                                          _P, _P, _I, _I, _I, _F, _P]),
+                                          _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                                          _P]),
     },
 }
 

@@ -45,21 +45,64 @@
 //
 // Backward design. The field gradient is the transpose of the 4-tap
 // gather, a scatter: pixel p adds g[p] * weight into the 4 cells it read.
-// The scatter is turned into ownership: each block owns a tile of
-// kTile x kTile cells of one image, holds the tile's gradient planes (one
-// per field, 32 KB for a triplet) in shared memory, and visits every
-// pixel whose taps can reach the tile: the tile and a halo of
-// ceil(|dt| L) + 1 pixels (the clamp bounds the reach), clipped to the
-// image. It adds the taps that fall in its tile with shared-memory
-// atomics and drops the others, then stores the planes with plain
-// coalesced writes. So no output is zeroed first, no block writes
-// another's cells, and no global atomic is needed. A halo pixel is
-// visited by each tile it can reach: at B=256 256x256 with R = 8,
-// (64+18)^2 / 64^2 = 1.64 visits per pixel, whose second reads of g and v
-// hit L2 behind the neighbouring tile's. An image that fits one tile
-// (H, W <= 64: the trainer's 64x64 tiles) is one block with no halo and
-// 1024 threads, so B=16 runs 16 blocks: a launch-bound shape whatever the
-// layout.
+// The scatter is turned into ownership: each block owns a tile of TH x TW
+// cells of one image and visits every pixel whose taps can reach it: the
+// tile and a halo of ceil(|dt| L) + 1 pixels (the clamp bounds the reach),
+// clipped to the image. It adds the taps that fall in its tile into
+// shared memory and drops the others, then stores the tile with plain
+// coalesced writes. No output is zeroed first, no block writes another's
+// cells, and no global atomic is needed.
+//
+// Staging. A block first copies its window's v and g into shared memory
+// with cp.async (every copy in flight at once, LDGSTS), takes max |g| from
+// there, and scatters from there; a window too large for its share of
+// shared memory (kSmemBudget, two blocks per SM) is staged in chunks of
+// rows, its max read from device memory first. The kernel is instantiated
+// for the gradients asked for, so the train step's (field gradients only)
+// carries no velocity-gradient code.
+//
+// Tiles that fill the card. The wrapper picks the tile (`bwd_tile` in
+// mpgan_torch/ops/warp_kernel.py, the one place of the rule): the largest
+// (64x64 for one field, 32x64 for a triplet, whose 64x64 window would need
+// three chunks) when the batch gives at least two blocks per SM, else
+// 16x32: the trainer's B=16 64x64 runs 128 blocks, where one 64x64 tile
+// per image ran 16 on 132 SMs. A block has 512 threads. A pixel is visited
+// once per tile its taps can reach: 1.6 times at 64x64 in 256x256, 2.0 at
+// 32x64, 2.4 at 16x32 in 64x64.
+//
+// Fixed-point sums, so that the gradient does not depend on the order of
+// the adds. Float atomics add in an order that changes from run to run,
+// and a shared float atomicAdd is a CAS loop on sm_90a (ATOMS.CAST.SPIN).
+// Integer adds are exact and commute, so each block:
+// 1. reduces M = max |g| over its window, per field (REDUX.MAX on the
+//    bits of |g|, which order as the floats do, then one slot per warp);
+// 2. takes e = 30 - E for M = m 2^E, m in [1/2, 1), clamped to
+//    [-126, 127] so that 2^e and 2^-e are floats: M 2^e < 2^30;
+// 3. rounds each tap's term q = rn(g 2^e w_y w_x), |q| <= 2^30, to an int
+//    and adds it to its cell's 64-bit sum, kept as two 32-bit words: a
+//    native add into the low word (started at 2^31), and a second into the
+//    high word only when the low word wraps (add_fixed). A cell's sum stays
+//    far inside 64 bits, so the words hold it exactly;
+// 4. stores each cell as (hi 2^32 + lo - 2^31) 2^-e, rounded once.
+// The same inputs give the same bits on every run. The SASS (cuobjdump
+// -sass of the built library) shows why 32-bit words: a 64-bit shared
+// atomicAdd is a CAS loop on sm_90a (ATOMS.CAST.SPIN.64), a 32-bit integer
+// one is native (ATOMS.ADD), as are REDUX.MAX and LDGSTS; the backward has
+// no ATOMS.CAST.SPIN.
+//
+// Error budget. Each term's rounding is at most 2^-(e+1) <= 2^-30 M. A
+// pixel adds at most one nonzero term to a cell (its coinciding border
+// taps carry weight 0), and only pixels within halo - 1 of a cell in each
+// axis reach it: at most (2 halo)^2 terms, so a cell is off the exact sum
+// of its float terms by at most (2 halo)^2 2^-30 M, 3.0e-7 M at the
+// trainer's clamp (halo 9). The float products g w_y w_x round as the
+// plain version's do. A window with a non-finite g stores NaN in its whole
+// tile (the plain version spreads NaN or inf to the taps only); a window
+// whose g is all zero stores zeros.
+//
+// Bound: the field gradients read g (4 B per field) and v (8 B) and write
+// 4 B per field, each once: 24 B per pixel for a triplet, 16 B for one
+// field (above). The halo re-reads g and v, from L2 at best.
 //
 // The velocity gradient needs no atomics: each pixel's own
 // -dt g (d out / d p), with d out / d px = (1-fy)(f[y0,x1] - f[y0,x0])
@@ -68,23 +111,44 @@
 // gradient passes where the velocity or the backtrace lies exactly on its
 // bound (zero velocity on a border pixel).
 //
-// Tolerance. Shared-memory float32 atomics add in an order that changes
-// from run to run, so a field gradient differs from the plain version's
-// (and from one run to the next) by the rounding of a reordered sum: a
-// few ulps of the sum of the cell's |terms|. That is about 1e-7 for
-// |g| <= 1 where a cell takes a few taps, and grows where the clamps pile
-// many pixels onto one border cell. Gradients are held at 1e-4 against
-// the plain version, the tolerance the JAX package's tests give the VJP.
-// The forward has no reduction; its gap to the plain version is FMA
-// contraction in the blend, held at 1e-5.
+// Tolerance. The field gradients differ from the plain version's by the
+// fixed-point budget above and by the plain version's own float sums,
+// whose order differs (on a card they are float atomics): a few ulps of
+// the sum of a cell's |terms|, most where the clamps pile many pixels onto
+// one border cell. They are held at 1e-4 against the plain version, the
+// tolerance the JAX package's tests give the VJP, and bit for bit against
+// themselves over repeated calls. The forward has no reduction; its gap to
+// the plain version is FMA contraction in the blend, held at 1e-5.
+//
+// Launch. Each entry point takes the device of its tensors and PyTorch's
+// current stream on it, makes that device current only if it is not, and
+// restores it.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kTile = 64;  // backward: the edge of the tile a block owns
+constexpr int kThreads = 512;           // backward: threads of a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kSmemBudget = 112 * 1024; // backward: two blocks per SM
+
+// Make device `dev` current for a launch if it is not, and restore the
+// caller's device after.
+struct DeviceGuard {
+  int prev = -1, dev;
+  explicit DeviceGuard(int d) : dev(d) {
+    cudaGetDevice(&prev);
+    if (prev != dev) cudaSetDevice(dev);
+  }
+  ~DeviceGuard() {
+    if (prev != dev) cudaSetDevice(prev);
+  }
+};
 
 // The bilinear taps of the clamped backtrace from pixel (x, y), and the
 // masks of the two clamps' backward (velocity, border), as the plain
@@ -170,111 +234,281 @@ struct BwdArgs {
   const float2* vel;
   float* df[NF];       // field gradients (B, H, W), or null
   float2* dvel;        // velocity gradient (B, H, W), or null
-  int h, w, tiles_x, halo;
+  int h, w, th, tw, tiles_x, halo;
+  int win_cap;         // window pixels staged in shared memory at once
   float lim;
 };
 
-template <int NF>
-__global__ void __launch_bounds__(1024) warp2d_bwd_kernel(BwdArgs<NF> a) {
-  __shared__ float acc[NF][kTile * kTile];
-  const int b = blockIdx.y;
-  const int oy0 = (blockIdx.x / a.tiles_x) * kTile;
-  const int ox0 = (blockIdx.x % a.tiles_x) * kTile;
-  const int th = min(kTile, a.h - oy0), tw = min(kTile, a.w - ox0);
-  const bool field_grad = a.df[0] != nullptr;
-  // the pixels whose taps can reach the tile: the tile and a halo, clipped
-  // to the image (for the velocity gradient alone, the tile)
-  const int halo = field_grad ? a.halo : 0;
-  const int sy0 = max(oy0 - halo, 0), sx0 = max(ox0 - halo, 0);
-  const int sh = min(oy0 + th - 1 + halo, a.h - 1) - sy0 + 1;
-  const int sw = min(ox0 + tw - 1 + halo, a.w - 1) - sx0 + 1;
-  if (field_grad) {
-    for (int q = threadIdx.x; q < NF * kTile * kTile; q += blockDim.x)
-      acc[q / (kTile * kTile)][q % (kTile * kTile)] = 0.0f;
-    __syncthreads();
+// Add the term q = rn(term) to a cell's 64-bit sum, held as a low word
+// (unsigned, started at 2^31) and a high word (signed): one native 32-bit
+// add into the low word, and one into the high word only when the low word
+// wraps (its carry, or its borrow for a negative q). The start at 2^31
+// keeps the low word away from its wrap while the cell's sum stays within
+// +-2^31, so the second add is rare. Integer adds commute, so the cell's
+// final words do not depend on the order of the adds.
+__device__ __forceinline__ void add_fixed(unsigned* lo, int* hi, int cell,
+                                          float term) {
+  const int q = __float2int_rn(term);
+  if (q == 0) return;
+  const unsigned old = atomicAdd(lo + cell, (unsigned)q);
+  const int qh = (q >> 31) + (old + (unsigned)q < old ? 1 : 0);
+  if (qh != 0) atomicAdd(hi + cell, qh);
+}
+
+// (y, x) of window pixel q of a window sw pixels wide, for a thread that
+// walks q = first, first + step, ...: division once, then adds.
+struct WindowWalk {
+  int wy, wx, dy, dx, sw;
+  __device__ WindowWalk(int first, int step, int width)
+      : wy(first / width), wx(first % width), dy(step / width),
+        dx(step % width), sw(width) {}
+  __device__ void next() {
+    wx += dx;
+    wy += dy;
+    if (wx >= sw) {
+      wx -= sw;
+      ++wy;
+    }
   }
+};
+
+// FG: the field gradients are asked for; VG: the velocity gradient.
+template <int NF, bool FG, bool VG>
+__global__ void __launch_bounds__(kThreads, 2)
+    warp2d_bwd_kernel(BwdArgs<NF> a) {
+  // shared: the staged window (v, then g of each field), then the planes
+  // (low words, then high words, of each field's th * tw cells)
+  extern __shared__ float4 smem[];
+  __shared__ unsigned warp_max[NF][kWarps];
+  const int cells = a.th * a.tw;
+  float2* s_vel = reinterpret_cast<float2*>(smem);
+  float* s_g = reinterpret_cast<float*>(s_vel + a.win_cap);
+  unsigned* lo = reinterpret_cast<unsigned*>(s_g + NF * a.win_cap);
+  int* hi = reinterpret_cast<int*>(lo + NF * cells);
+  const int b = blockIdx.y;
+  const int oy0 = (blockIdx.x / a.tiles_x) * a.th;
+  const int ox0 = (blockIdx.x % a.tiles_x) * a.tw;
+  const int th = min(a.th, a.h - oy0), tw = min(a.tw, a.w - ox0);
+  // the pixels whose taps can reach the tile: the tile and a halo, clipped
+  // to the image (for the velocity gradient alone, the halo is 0)
+  const int sy0 = max(oy0 - a.halo, 0), sx0 = max(ox0 - a.halo, 0);
+  const int sh = min(oy0 + th - 1 + a.halo, a.h - 1) - sy0 + 1;
+  const int sw = min(ox0 + tw - 1 + a.halo, a.w - 1) - sx0 + 1;
+  const int n = sh * sw;
   const size_t img = (size_t)b * a.h * a.w;
-  for (int p = threadIdx.x; p < sh * sw; p += blockDim.x) {
-    const int y = sy0 + p / sw, x = sx0 + p % sw;
-    const size_t i = img + (size_t)y * a.w + x;
-    const float2 v = a.vel[i];
-    const long long go = b * a.gsb + y * a.gsy + x * a.gsx;
-    const bool own = y - oy0 >= 0 && y - oy0 < th && x - ox0 >= 0
-                     && x - ox0 < tw;
-    float dvx = 0.0f, dvy = 0.0f;
+  const long long gb = b * a.gsb;
+  const int rows_cap = a.win_cap / sw;  // >= 1 (the launcher sees to it)
+  const int chunks = (sh + rows_cap - 1) / rows_cap;
+
+  // stage window rows [r0, r1) in shared memory: every copy in flight at
+  // once (cp.async), then wait
+  auto stage = [&](int r0, int r1) {
+    WindowWalk it(threadIdx.x, blockDim.x, sw);
+    for (int q = threadIdx.x; q < (r1 - r0) * sw; q += blockDim.x) {
+      const int y = sy0 + r0 + it.wy, x = sx0 + it.wx;
+      __pipeline_memcpy_async(s_vel + q, a.vel + img + (size_t)y * a.w + x,
+                              sizeof(float2));
+      const long long go = gb + y * a.gsy + x * a.gsx;
 #pragma unroll
-    for (int k = 0; k < NF; ++k) {
-      const Taps t = locate(x, y, a.h, a.w, v.x, v.y, a.dt[k], a.lim);
-      const float g = __ldg(a.g[k] + go);
-      if (field_grad) {  // the taps that fall in the tile
-        const int r0 = t.y0 - oy0, r1 = t.y1 - oy0;
-        const int c0 = t.x0 - ox0, c1 = t.x1 - ox0;
-        const bool in_r0 = r0 >= 0 && r0 < th, in_r1 = r1 >= 0 && r1 < th;
-        const bool in_c0 = c0 >= 0 && c0 < tw, in_c1 = c1 >= 0 && c1 < tw;
-        const float gt = g * (1.0f - t.fy), gb = g * t.fy;
-        const float wx0 = 1.0f - t.fx, wx1 = t.fx;
-        float* s = acc[k];
-        if (in_r0 && in_c0) atomicAdd(s + r0 * kTile + c0, gt * wx0);
-        if (in_r0 && in_c1) atomicAdd(s + r0 * kTile + c1, gt * wx1);
-        if (in_r1 && in_c0) atomicAdd(s + r1 * kTile + c0, gb * wx0);
-        if (in_r1 && in_c1) atomicAdd(s + r1 * kTile + c1, gb * wx1);
+      for (int k = 0; k < NF; ++k)
+        __pipeline_memcpy_async(s_g + k * a.win_cap + q, a.g[k] + go,
+                                sizeof(float));
+      it.next();
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  };
+
+  // 1. start the planes; max |g| over the window, per field (from the
+  // staged window, or from device memory when it is staged in chunks)
+  float scale[NF], inv[NF];
+  bool bad[NF];
+#pragma unroll
+  for (int k = 0; k < NF; ++k) {
+    scale[k] = inv[k] = 1.0f;
+    bad[k] = false;
+  }
+  if (FG) {
+    for (int q = threadIdx.x; q < 2 * NF * cells; q += blockDim.x)
+      lo[q] = q < NF * cells ? 0x80000000u : 0u;  // then hi, after lo
+    unsigned m[NF];
+#pragma unroll
+    for (int k = 0; k < NF; ++k) m[k] = 0u;
+    if (chunks == 1) {
+      stage(0, sh);
+      for (int q = threadIdx.x; q < n; q += blockDim.x) {
+#pragma unroll
+        for (int k = 0; k < NF; ++k)
+          m[k] = max(m[k], __float_as_uint(fabsf(s_g[k * a.win_cap + q])));
       }
-      if (a.dvel != nullptr && own) {
-        const float* f = a.f[k] + img;
-        const float f00 = __ldg(f + t.y0 * a.w + t.x0);
-        const float f01 = __ldg(f + t.y0 * a.w + t.x1);
-        const float f10 = __ldg(f + t.y1 * a.w + t.x0);
-        const float f11 = __ldg(f + t.y1 * a.w + t.x1);
-        const float s = -a.dt[k] * g;
-        if (t.pass_x)
-          dvx += s * ((1.0f - t.fy) * (f01 - f00) + t.fy * (f11 - f10));
-        if (t.pass_y)
-          dvy += s * (((1.0f - t.fx) * f10 + t.fx * f11)
-                      - ((1.0f - t.fx) * f00 + t.fx * f01));
+    } else {
+      WindowWalk it(threadIdx.x, blockDim.x, sw);
+      for (int q = threadIdx.x; q < n; q += blockDim.x) {
+        const long long go =
+            gb + (sy0 + it.wy) * a.gsy + (sx0 + it.wx) * a.gsx;
+#pragma unroll
+        for (int k = 0; k < NF; ++k)
+          m[k] = max(m[k], __float_as_uint(fabsf(__ldg(a.g[k] + go))));
+        it.next();
       }
     }
-    if (a.dvel != nullptr && own) a.dvel[i] = make_float2(dvx, dvy);
-  }
-  if (!field_grad) return;
-  __syncthreads();
-  for (int q = threadIdx.x; q < th * tw; q += blockDim.x) {
-    const int r = q / tw, c = q % tw;
-    const size_t i = img + (size_t)(oy0 + r) * a.w + ox0 + c;
+    const int warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int k = 0; k < NF; ++k) a.df[k][i] = acc[k][r * kTile + c];
+    for (int k = 0; k < NF; ++k) {
+      m[k] = __reduce_max_sync(0xffffffffu, m[k]);
+      if ((threadIdx.x & 31) == 0) warp_max[k][warp] = m[k];
+    }
+    __syncthreads();
+    // 2. the exponent: M 2^e < 2^30, so that every term fits an int
+    const int nwarps = blockDim.x >> 5;
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      unsigned bits = 0u;
+      for (int j = 0; j < nwarps; ++j) bits = max(bits, warp_max[k][j]);
+      bad[k] = bits >= 0x7f800000u;  // inf or NaN (fabsf clears the sign)
+      int e = 0;
+      if (bits != 0u && !bad[k]) {
+        int ex;
+        frexpf(__uint_as_float(bits), &ex);  // M < 2^ex
+        e = min(max(30 - ex, -126), 127);
+      }
+      scale[k] = ldexpf(1.0f, e);
+      inv[k] = ldexpf(1.0f, -e);
+    }
+  }
+
+  // 3. the scatter, and the velocity gradient of the tile's own pixels,
+  // chunk by chunk of window rows
+  for (int c = 0; c < chunks; ++c) {
+    const int r0 = c * rows_cap, r1 = min(r0 + rows_cap, sh);
+    if (!FG || chunks > 1) {
+      if (c > 0) __syncthreads();  // the last chunk's reads are done
+      stage(r0, r1);
+    }
+    WindowWalk it(threadIdx.x, blockDim.x, sw);
+    for (int q = threadIdx.x; q < (r1 - r0) * sw; q += blockDim.x) {
+      const int y = sy0 + r0 + it.wy, x = sx0 + it.wx;
+      it.next();
+      const float2 v = s_vel[q];
+      float dvx = 0.0f, dvy = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NF; ++k) {
+        const Taps t = locate(x, y, a.h, a.w, v.x, v.y, a.dt[k], a.lim);
+        const float g = s_g[k * a.win_cap + q];
+        if (FG) {  // the taps that fall in the tile
+          const int r0t = t.y0 - oy0, r1t = t.y1 - oy0;
+          const int c0t = t.x0 - ox0, c1t = t.x1 - ox0;
+          const bool in_r0 = (unsigned)r0t < (unsigned)th;
+          const bool in_r1 = (unsigned)r1t < (unsigned)th;
+          const bool in_c0 = (unsigned)c0t < (unsigned)tw;
+          const bool in_c1 = (unsigned)c1t < (unsigned)tw;
+          const float gs = g * scale[k];
+          const float gt = gs * (1.0f - t.fy), gbt = gs * t.fy;
+          const float wx0 = 1.0f - t.fx, wx1 = t.fx;
+          unsigned* pl = lo + k * cells;
+          int* ph = hi + k * cells;
+          if (in_r0 && in_c0) add_fixed(pl, ph, r0t * a.tw + c0t, gt * wx0);
+          if (in_r0 && in_c1) add_fixed(pl, ph, r0t * a.tw + c1t, gt * wx1);
+          if (in_r1 && in_c0) add_fixed(pl, ph, r1t * a.tw + c0t, gbt * wx0);
+          if (in_r1 && in_c1) add_fixed(pl, ph, r1t * a.tw + c1t, gbt * wx1);
+        }
+        if (VG) {
+          const float* f = a.f[k] + img;
+          const float f00 = __ldg(f + t.y0 * a.w + t.x0);
+          const float f01 = __ldg(f + t.y0 * a.w + t.x1);
+          const float f10 = __ldg(f + t.y1 * a.w + t.x0);
+          const float f11 = __ldg(f + t.y1 * a.w + t.x1);
+          const float sg = -a.dt[k] * g;
+          if (t.pass_x)
+            dvx += sg * ((1.0f - t.fy) * (f01 - f00) + t.fy * (f11 - f10));
+          if (t.pass_y)
+            dvy += sg * (((1.0f - t.fx) * f10 + t.fx * f11)
+                         - ((1.0f - t.fx) * f00 + t.fx * f01));
+        }
+      }
+      if (VG && (unsigned)(y - oy0) < (unsigned)th
+          && (unsigned)(x - ox0) < (unsigned)tw)  // a pixel of the tile
+        a.dvel[img + (size_t)y * a.w + x] = make_float2(dvx, dvy);
+    }
+  }
+  if (!FG) return;
+  __syncthreads();
+
+  // 4. the tile: (hi 2^32 + lo - 2^31) 2^-e, rounded once
+  for (int q = threadIdx.x; q < th * tw; q += blockDim.x) {
+    const int r = q / tw, cc = q % tw;
+    const size_t i = img + (size_t)(oy0 + r) * a.w + ox0 + cc;
+    const int cell = r * a.tw + cc;
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      const long long sum = (long long)hi[k * cells + cell] * 4294967296ll
+                            + (long long)lo[k * cells + cell] - 2147483648ll;
+      a.df[k][i] = bad[k] ? __int_as_float(0x7fc00000)
+                          : __ll2float_rn(sum) * inv[k];
+    }
   }
 }
 
-// Launch the backward for NF fields over b images: one block per tile.
+// Launch one instantiation on the current device, its shared memory above
+// 48 KB allowed first.
+template <int NF, bool FG, bool VG>
+int launch_one(const BwdArgs<NF>& a, dim3 grid, int smem,
+               cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    int err = (int)cudaFuncSetAttribute(
+        warp2d_bwd_kernel<NF, FG, VG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+  }
+  warp2d_bwd_kernel<NF, FG, VG><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Launch the backward for NF fields over b images: one block per tile of
+// th x tw cells, its window staged in at most kSmemBudget bytes of shared
+// memory (two blocks per SM), in one chunk where it fits.
 template <int NF>
-int launch_bwd(BwdArgs<NF> a, int b, cudaStream_t stream) {
-  if (b * a.h * a.w == 0) return 0;
+int launch_bwd(BwdArgs<NF> a, int b, int dev, cudaStream_t stream) {
+  const bool fg = a.df[0] != nullptr, vg = a.dvel != nullptr;
+  if (b * a.h * a.w == 0 || !(fg || vg)) return 0;
+  if (a.th <= 0 || a.tw <= 0) return (int)cudaErrorInvalidValue;
   float reach = 0.0f;
   for (int k = 0; k < NF; ++k) reach = fmaxf(reach, fabsf(a.dt[k]) * a.lim);
-  a.halo = (int)ceilf(reach) + 1;
-  a.tiles_x = (a.w + kTile - 1) / kTile;
-  const int tiles = a.tiles_x * ((a.h + kTile - 1) / kTile);
-  // an image of one tile is one block: give it the most threads
-  warp2d_bwd_kernel<NF><<<dim3(tiles, b), tiles == 1 ? 1024 : 512, 0,
-                          stream>>>(a);
-  return (int)cudaGetLastError();
+  a.halo = fg ? (int)ceilf(fminf(reach, 1e6f)) + 1 : 0;
+  const long long win_h = std::min(a.th + 2 * a.halo, a.h);
+  const long long win_w = std::min(a.tw + 2 * a.halo, a.w);
+  const long long px_bytes = sizeof(float2) + NF * sizeof(float);
+  const long long planes = fg ? 2ll * NF * a.th * a.tw * 4 : 0;
+  const long long rows = (kSmemBudget - planes) / (px_bytes * win_w);
+  if (rows < 1) return (int)cudaErrorInvalidValue;  // a window row too wide
+  a.win_cap = (int)(std::min(rows, win_h) * win_w);
+  const int smem = (int)(a.win_cap * px_bytes + planes);
+  a.tiles_x = (a.w + a.tw - 1) / a.tw;
+  const dim3 grid(a.tiles_x * ((a.h + a.th - 1) / a.th), b);
+  DeviceGuard guard(dev);
+  if (fg && vg) return launch_one<NF, true, true>(a, grid, smem, stream);
+  if (fg) return launch_one<NF, true, false>(a, grid, smem, stream);
+  return launch_one<NF, false, true>(a, grid, smem, stream);
 }
 
 }  // namespace
 
-// All pointers are to float32 device memory of the device current on the
-// calling thread, contiguous unless strides are given; B*H*W (3*B*H*W for
-// a triplet's output) fits in an int and B <= 65535 (the wrapper checks).
-// Each function launches on `stream`, allocates nothing, does not
-// synchronise, and returns cudaGetLastError().
+// All pointers are to float32 device memory of device `dev`, contiguous
+// unless strides are given; B*H*W (3*B*H*W for a triplet's output) fits in
+// an int and B <= 65535 (the wrapper checks). Each function launches on
+// `stream` (a stream of `dev`), allocates nothing, does not synchronise,
+// and returns cudaGetLastError() (cudaErrorInvalidValue for a backward
+// tile it does not take).
 
 // field (B, H, W), vel (B, H, W, 2), out (B, H, W).
 extern "C" int mpgan_warp2d(const void* field, const void* vel, void* out,
                             int b, int h, int w, float dt, float lim,
-                            void* stream) {
+                            int dev, void* stream) {
   int n = b * h * w;
   if (n == 0) return 0;
   const int threads = 256;
+  DeviceGuard guard(dev);
   warp2d_kernel<<<(n + threads - 1) / threads, threads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(field), static_cast<const float2*>(vel),
@@ -287,11 +521,12 @@ extern "C" int mpgan_warp2d(const void* field, const void* vel, void* out,
 extern "C" int mpgan_warp2d_triplet(const void* prev, const void* cur,
                                     const void* nxt, const void* vel,
                                     void* out, int b, int h, int w, float lim,
-                                    void* stream) {
+                                    int dev, void* stream) {
   int n = b * h * w;
   if (n == 0) return 0;
   const int threads = 256;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
+  DeviceGuard guard(dev);
   warp2d_triplet_kernel<<<(n + threads - 1) / threads, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       f(prev), f(cur), f(nxt), static_cast<const float2*>(vel),
@@ -301,12 +536,13 @@ extern "C" int mpgan_warp2d_triplet(const void* prev, const void* cur,
 
 // g: the gradient of out, read at g + b*gsb + y*gsy + x*gsx; field (B, H, W)
 // (read only when d_vel is given); vel (B, H, W, 2). Writes d_field
-// (B, H, W) unless null and d_vel (B, H, W, 2) unless null.
+// (B, H, W) unless null and d_vel (B, H, W, 2) unless null; th x tw is the
+// tile of a block.
 extern "C" int mpgan_warp2d_bwd(const void* g, long long gsb, long long gsy,
                                 long long gsx, const void* field,
                                 const void* vel, void* d_field, void* d_vel,
-                                int b, int h, int w, float dt, float lim,
-                                void* stream) {
+                                int b, int h, int w, int th, int tw, float dt,
+                                float lim, int dev, void* stream) {
   BwdArgs<1> a{};
   a.g[0] = static_cast<const float*>(g);
   a.gsb = gsb; a.gsy = gsy; a.gsx = gsx;
@@ -315,22 +551,23 @@ extern "C" int mpgan_warp2d_bwd(const void* g, long long gsb, long long gsy,
   a.vel = static_cast<const float2*>(vel);
   a.df[0] = static_cast<float*>(d_field);
   a.dvel = static_cast<float2*>(d_vel);
-  a.h = h; a.w = w; a.lim = lim;
-  return launch_bwd(a, b, static_cast<cudaStream_t>(stream));
+  a.h = h; a.w = w; a.th = th; a.tw = tw; a.lim = lim;
+  return launch_bwd(a, b, dev, static_cast<cudaStream_t>(stream));
 }
 
 // g: the gradient of the triplet's (B, H, W, 3) output, read at
 // g + b*gsb + y*gsy + x*gsx + c*gsc (channels 0 and 2). prev, nxt (B, H, W)
 // (read only when d_vel is given); vel (B, H, W, 2). Writes d_prev and
 // d_nxt (B, H, W) unless d_prev is null (both or neither), and d_vel
-// (B, H, W, 2) unless null.
+// (B, H, W, 2) unless null; th x tw is the tile of a block.
 extern "C" int mpgan_warp2d_triplet_bwd(const void* g, long long gsb,
                                         long long gsy, long long gsx,
                                         long long gsc, const void* prev,
                                         const void* nxt, const void* vel,
                                         void* d_prev, void* d_nxt,
                                         void* d_vel, int b, int h, int w,
-                                        float lim, void* stream) {
+                                        int th, int tw, float lim, int dev,
+                                        void* stream) {
   BwdArgs<2> a{};
   const float* g0 = static_cast<const float*>(g);
   a.g[0] = g0;
@@ -344,6 +581,6 @@ extern "C" int mpgan_warp2d_triplet_bwd(const void* g, long long gsb,
   a.df[0] = static_cast<float*>(d_prev);
   a.df[1] = d_prev != nullptr ? static_cast<float*>(d_nxt) : nullptr;
   a.dvel = static_cast<float2*>(d_vel);
-  a.h = h; a.w = w; a.lim = lim;
-  return launch_bwd(a, b, static_cast<cudaStream_t>(stream));
+  a.h = h; a.w = w; a.th = th; a.tw = tw; a.lim = lim;
+  return launch_bwd(a, b, dev, static_cast<cudaStream_t>(stream));
 }

@@ -21,9 +21,21 @@ version of the backward. :func:`advect_2d_fast` and
 both ways for CUDA tensors (:class:`AdvectFast`, :class:`AlignTripletFast`),
 the plain version and its autograd for CPU tensors. There is no fallback:
 on CUDA tensors a failed build or launch raises.
+
+The launchers are lean, since at the trainer's shape a call is host time:
+one pass of checks over the tensors (the detailed checks with their
+messages run only for what is refused), outputs from ``new_empty``, the
+current stream's raw handle from ``torch._C._cuda_getCurrentRawStream``
+(``torch.cuda.current_stream(...).cuda_stream`` where torch lacks it,
+decided once at import; :data:`STREAM_SOURCE` says which), and the device
+made current inside the C entry only when it is not. The backward's tile is
+chosen here (:func:`bwd_tile`); its gradients are fixed-point sums, the
+same bits on every call (the note at the top of ``csrc/warp.cu``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -76,17 +88,49 @@ def align_triplet_ref(prev: torch.Tensor, cur: torch.Tensor,
                      dim=-1)
 
 
-def _check(name: str, vel: torch.Tensor, **fields) -> tuple[int, int, int]:
-    """(B, H, W) of ``vel`` (B, H, W, 2); raises unless ``vel`` and every
-    field (B, H, W, 1) are contiguous float32 tensors on one CUDA device."""
+_F32 = torch.float32
+
+# the raw handle of the current stream of a device index, decided once
+if hasattr(torch._C, "_cuda_getCurrentRawStream"):
+    _stream = torch._C._cuda_getCurrentRawStream
+    STREAM_SOURCE = "torch._C._cuda_getCurrentRawStream"
+else:
+    def _stream(index: int) -> int:
+        return torch.cuda.current_stream(index).cuda_stream
+    STREAM_SOURCE = "torch.cuda.current_stream"
+
+# The backward's tiles (rows, columns) for one field and for a triplet's
+# two, largest first: the first that gives at least BWD_MIN_BLOCKS blocks
+# (two per SM of an H100) is taken, else the last. A triplet's 64x64
+# window would not fit one staged chunk at two blocks per SM, so its
+# largest tile is 32x64.
+BWD_TILES = {1: ((64, 64), (16, 32)), 2: ((32, 64), (16, 32))}
+BWD_MIN_BLOCKS = 2 * 132
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_tile(b: int, h: int, w: int, fields: int) -> tuple[int, int]:
+    """The tile (rows, columns) a block of the backward kernel owns for
+    ``b`` images of ``h`` x ``w`` and 1 or 2 ``fields``."""
+    tiles = BWD_TILES[fields]
+    for th, tw in tiles:
+        if b * -(-h // th) * -(-w // tw) >= BWD_MIN_BLOCKS:
+            return th, tw
+    return tiles[-1]
+
+
+def _refuse(name: str, vel: torch.Tensor, fields, names) -> None:
+    """Raise the error that :func:`_check` found: ``vel`` (B, H, W, 2) and
+    every field (B, H, W, 1) must be contiguous float32 tensors on one CUDA
+    device."""
     dev = vel.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got vel on {dev}")
     if vel.dim() != 4 or vel.shape[-1] != 2:
         raise ValueError(f"vel must be (B, H, W, 2), got {tuple(vel.shape)}")
     b, h, w, _ = vel.shape
-    for k, t in dict(fields, vel=vel).items():
-        if t.device != dev or t.dtype != torch.float32:
+    for k, t in zip((*names, "vel"), (*fields, vel)):
+        if t.device != dev or t.dtype != _F32:
             raise ValueError(f"{name} needs float32 tensors on {dev}, got "
                              f"{k} {t.dtype} on {t.device}")
         if not t.is_contiguous():
@@ -98,26 +142,40 @@ def _check(name: str, vel: torch.Tensor, **fields) -> tuple[int, int, int]:
         raise ValueError(f"{b}x{h}x{w} pixels exceed the kernel's indices")
     if vel.data_ptr() % 8:
         raise ValueError("vel must be 8-byte aligned (read as float2)")
-    return b, h, w
+    raise ValueError(f"{name}: inputs the kernel does not take")
 
 
-def _check_grad(g: torch.Tensor, shape: tuple, dev: torch.device) -> None:
-    if g.device != dev or g.dtype != torch.float32 or g.shape != shape:
-        raise ValueError(f"the gradient must be float32 {shape} on {dev}, "
-                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+def _check(name: str, vel: torch.Tensor, fields, names):
+    """(B, H, W, device index) of ``vel`` (B, H, W, 2); raises (through
+    :func:`_refuse`) unless ``vel`` and every field (B, H, W, 1) are
+    contiguous float32 tensors on one CUDA device."""
+    shape = vel.shape
+    if (not vel.is_cuda or vel.dtype is not _F32 or len(shape) != 4
+            or shape[3] != 2 or not vel.is_contiguous()
+            or vel.data_ptr() % 8):
+        _refuse(name, vel, fields, names)
+    b, h, w, _ = shape
+    dev = vel.get_device()
+    want = (b, h, w, 1)
+    for t in fields:
+        if (not t.is_cuda or t.get_device() != dev or t.dtype is not _F32
+                or t.shape != want or not t.is_contiguous()):
+            _refuse(name, vel, fields, names)
+    if 3 * b * h * w >= 2 ** 31 or b > 65535:
+        _refuse(name, vel, fields, names)
+    return b, h, w, dev
 
 
-def _launch(fn, dev: torch.device, *args) -> None:
-    """Call the C entry ``fn`` with ``args`` and the current stream of
-    ``dev``, making ``dev`` current only if it is not; raise on a CUDA
-    error."""
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+def _check_grad(g: torch.Tensor, shape: tuple, vel: torch.Tensor) -> None:
+    if (not g.is_cuda or g.get_device() != vel.get_device()
+            or g.dtype is not _F32 or g.shape != shape):
+        raise ValueError(f"the gradient must be float32 {shape} on "
+                         f"{vel.device}, got {g.dtype} {tuple(g.shape)} on "
+                         f"{g.device}")
+
+
+def _failed(fn, err: int) -> None:
+    raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
 
 
 def advect_2d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
@@ -126,11 +184,13 @@ def advect_2d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
     (v_w, v_h), contiguous float32 on one CUDA device → (B, H, W, 1)
     float32. Raises on anything the kernel does not take."""
     global launches
-    b, h, w = _check("advect_2d_kernel", vel, field=field)
-    out = torch.empty((b, h, w, 1), dtype=torch.float32, device=vel.device)
-    _launch(_kernels().mpgan_warp2d, vel.device, field.data_ptr(),
-            vel.data_ptr(), out.data_ptr(), b, h, w, float(dt),
-            _clamp_limit(dt, max_disp))
+    b, h, w, dev = _check("advect_2d_kernel", vel, (field,), ("field",))
+    out = vel.new_empty((b, h, w, 1))
+    fn = _kernels().mpgan_warp2d
+    err = fn(field.data_ptr(), vel.data_ptr(), out.data_ptr(), b, h, w,
+             float(dt), _clamp_limit(dt, max_disp), dev, _stream(dev))
+    if err:
+        _failed(fn, err)
     launches += 1
     return out
 
@@ -141,23 +201,23 @@ def advect_2d_kernel_bwd(g: torch.Tensor, field: torch.Tensor,
                          field_grad: bool = True, vel_grad: bool = False):
     """Launch the backward kernel of :func:`advect_2d_kernel` for the
     gradient ``g`` (B, H, W, 1) float32 of any strides → (d_field, d_vel),
-    each None unless asked for."""
+    each None unless asked for. The same inputs give the same bits."""
     global bwd_launches
-    b, h, w = _check("advect_2d_kernel_bwd", vel, field=field)
-    dev = vel.device
-    _check_grad(g, (b, h, w, 1), dev)
+    b, h, w, dev = _check("advect_2d_kernel_bwd", vel, (field,), ("field",))
+    _check_grad(g, (b, h, w, 1), vel)
     if not (field_grad or vel_grad):
         return None, None
-    d_field = (torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
-               if field_grad else None)
-    d_vel = (torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
-             if vel_grad else None)
+    d_field = vel.new_empty((b, h, w, 1)) if field_grad else None
+    d_vel = vel.new_empty((b, h, w, 2)) if vel_grad else None
     sb, sy, sx, _ = g.stride()
-    _launch(_kernels().mpgan_warp2d_bwd, dev, g.data_ptr(), sb, sy, sx,
-            field.data_ptr(), vel.data_ptr(),
-            d_field.data_ptr() if field_grad else None,
-            d_vel.data_ptr() if vel_grad else None, b, h, w, float(dt),
-            _clamp_limit(dt, max_disp))
+    th, tw = bwd_tile(b, h, w, 1)
+    fn = _kernels().mpgan_warp2d_bwd
+    err = fn(g.data_ptr(), sb, sy, sx, field.data_ptr(), vel.data_ptr(),
+             d_field.data_ptr() if field_grad else None,
+             d_vel.data_ptr() if vel_grad else None, b, h, w, th, tw,
+             float(dt), _clamp_limit(dt, max_disp), dev, _stream(dev))
+    if err:
+        _failed(fn, err)
     bwd_launches += 1
     return d_field, d_vel
 
@@ -171,12 +231,14 @@ def align_triplet_kernel(prev: torch.Tensor, cur: torch.Tensor,
     displacement clamped to ±max_disp. Raises on anything the kernel does
     not take."""
     global launches
-    b, h, w = _check("align_triplet_kernel", vel, prev=prev, cur=cur,
-                     nxt=nxt)
-    out = torch.empty((b, h, w, 3), dtype=torch.float32, device=vel.device)
-    _launch(_kernels().mpgan_warp2d_triplet, vel.device, prev.data_ptr(),
-            cur.data_ptr(), nxt.data_ptr(), vel.data_ptr(), out.data_ptr(),
-            b, h, w, float(max_disp))
+    b, h, w, dev = _check("align_triplet_kernel", vel, (prev, cur, nxt),
+                          ("prev", "cur", "nxt"))
+    out = vel.new_empty((b, h, w, 3))
+    fn = _kernels().mpgan_warp2d_triplet
+    err = fn(prev.data_ptr(), cur.data_ptr(), nxt.data_ptr(), vel.data_ptr(),
+             out.data_ptr(), b, h, w, float(max_disp), dev, _stream(dev))
+    if err:
+        _failed(fn, err)
     launches += 1
     return out
 
@@ -189,25 +251,29 @@ def align_triplet_kernel_bwd(g: torch.Tensor, prev: torch.Tensor,
     """Launch the backward kernel of :func:`align_triplet_kernel` for the
     gradient ``g`` (B, H, W, 3) float32 of any strides → (d_prev, d_nxt,
     d_vel), None where not asked for (d_prev and d_nxt together). The
-    gradient of cur is ``g[..., 1:2]`` and needs no launch."""
+    gradient of cur is ``g[..., 1:2]`` and needs no launch. The same inputs
+    give the same bits."""
     global bwd_launches
-    b, h, w = _check("align_triplet_kernel_bwd", vel, prev=prev, nxt=nxt)
-    dev = vel.device
-    _check_grad(g, (b, h, w, 3), dev)
+    b, h, w, dev = _check("align_triplet_kernel_bwd", vel, (prev, nxt),
+                          ("prev", "nxt"))
+    _check_grad(g, (b, h, w, 3), vel)
     d_prev = d_nxt = d_vel = None
     if not (field_grads or vel_grad):
         return d_prev, d_nxt, d_vel
     if field_grads:  # both planes in one allocation
-        d_prev, d_nxt = torch.empty((2, b, h, w, 1), dtype=torch.float32,
-                                    device=dev)
+        d_prev, d_nxt = vel.new_empty((2, b, h, w, 1)).unbind()
     if vel_grad:
-        d_vel = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
+        d_vel = vel.new_empty((b, h, w, 2))
     sb, sy, sx, sc = g.stride()
-    _launch(_kernels().mpgan_warp2d_triplet_bwd, dev, g.data_ptr(), sb, sy,
-            sx, sc, prev.data_ptr(), nxt.data_ptr(), vel.data_ptr(),
-            d_prev.data_ptr() if field_grads else None,
-            d_nxt.data_ptr() if field_grads else None,
-            d_vel.data_ptr() if vel_grad else None, b, h, w, float(max_disp))
+    th, tw = bwd_tile(b, h, w, 2)
+    fn = _kernels().mpgan_warp2d_triplet_bwd
+    err = fn(g.data_ptr(), sb, sy, sx, sc, prev.data_ptr(), nxt.data_ptr(),
+             vel.data_ptr(), d_prev.data_ptr() if field_grads else None,
+             d_nxt.data_ptr() if field_grads else None,
+             d_vel.data_ptr() if vel_grad else None, b, h, w, th, tw,
+             float(max_disp), dev, _stream(dev))
+    if err:
+        _failed(fn, err)
     bwd_launches += 1
     return d_prev, d_nxt, d_vel
 
