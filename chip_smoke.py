@@ -53,13 +53,22 @@ exit, and no result line:
             step 1 (R1 skipped, lrdisc 1) and step 0 (R1 applied, lrdisc
             1e-2), Ds and Dt at step 0 with lrdisc 1; the CPU step without
             oneDNN is reported beside each as the spread of float32
-            summation order; (b) bf16: 3 warm-up steps, then 3 windows of
-            32 timed steps (each with two R1 steps) between CUDA events,
-            with the launch counts reset just before and read just after:
-            3 forward and 1 backward warp launches per step, finite
-            metrics, EMA ≠ G; (c) pass 2 (D factors (2, 1)), bf16: 4
-            steps, 3 forward and 1 backward warp launches per step, finite
-            metrics
+            summation order; (b) bf16, stepping eagerly and replaying
+            CUDA graphs (mpgan_torch.train.graphed): each trainer warmed
+            up for 33 steps (every program run twice: two R1 steps), then
+            timed in turns (eager, graphed, graphed, eager) of 3 windows
+            of 32 steps (each with two R1 steps) between CUDA events, then
+            8 steps of each under the profiler
+            (mpgan_torch.profiling.train_profile: device busy share, host
+            launches per step, warp kernels per step by name), which must
+            show 3 triplet forward and 1 triplet backward warp kernels per
+            step in both ways; each way's median ms per step, peak
+            allocated bytes and the graphs' pool bytes; the launch counts
+            reset just before and read just after (a replay adds the
+            launches its graph captured): 3 forward and 1 backward per
+            step; finite metrics, EMA ≠ G; (c) pass 2 (D factors (2, 1)),
+            bf16: 4 steps, 3 forward and 1 backward warp launches per
+            step, finite metrics
 8. cli      the reference-style CLI, mpgan_torch.cli.main, in process on a
             temporary directory: (a) a smooth synthetic .uni dataset of 2
             sims × 4 frames, 32³ LR (density + velocity) → 128³ HR, and the
@@ -77,8 +86,9 @@ exit, and no result line:
             over the 8 volumes with the bundled chain), 4 iterations with
             3 forward and 1 backward warp launch each (counts reset just
             before, read just after), finite metrics; then its checkpoint
-            restored into a Trainer and 2 windows of 16 steps timed
-            between CUDA events (reported, not held to anything); (d)
+            restored into an eager and a graphed Trainer, timed and
+            profiled as 7b does (the times reported, not held to
+            anything; the warp kernels per step held); (d)
             `out 1` with 3 passes on two frames: 128³ volumes equal to a
             direct upscale_volume of the same chain; that chain's frame
             timed with and without pass 3 (10 frames, CUDA events)
@@ -120,10 +130,15 @@ exit, and no result line:
             Three with the port's fixed-order upsample backward: alone,
             with the other two swaps (all_three), and with cuDNN's
             deterministic mode and the triplet backward kernel
-            (kernel_bwd_deterministic: its fixed-point sums). Prints each
-            way's largest and median parameter gap between the runs of a
-            pair; asserts kernel_bwd_deterministic's are 0 in every pair,
-            reports the others
+            (kernel_bwd_deterministic: its fixed-point sums); these step
+            eagerly. Prints each way's largest and median parameter gap
+            between the runs of a pair; asserts kernel_bwd_deterministic's
+            are 0 in every pair, reports the others. Then, the gated way
+            replaying CUDA graphs against stepping eagerly through
+            Trainer.fit: 32 steps (R1 at steps 0 and 16) and a useGrowing
+            stretch of 24 (stage 2 fading over 8 steps, R1 at 16), every
+            tensor of the state and the last metrics equal bit for bit,
+            the programs captured and replayed as the rule says
 12 datagen  the data path on the card: (a) one solver step at 64³ with a
             sphere obstacle and MacCormack, Jacobi and CG, on the card and
             on the CPU from the same inputs (Jacobi 1e-5: no reduction, only
@@ -789,43 +804,29 @@ def phase_train(dev, wk):
     print("   f32 step card vs CPU " + json.dumps(
         {"assembly_max_abs_err": assembly_err, **parity}), flush=True)
 
-    # (b) bf16 steps through Trainer.fit: 3 windows of 32 steps, each with
-    # two R1 steps
+    # (b) bf16 steps through Trainer.fit, stepping eagerly and replaying
+    # CUDA graphs in turns, 3 windows of 32 steps a turn (each window with
+    # two R1 steps)
     cfg = recipe.flagship_config("bfloat16")
-    tr = loop.Trainer(cfg, tc, device=dev)
-    tr.fit(3, log_every=3)                   # warm-up (R1 at step 0)
-    n, windows = 32, 3
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(windows + 1)]
     wk.launches = wk.bwd_launches = 0                  # path starts
-    events[0].record()
-    for w in range(windows):
-        out = tr.fit(3 + (w + 1) * n, start_it=3 + w * n, log_every=n)
-        events[w + 1].record()
-    torch.cuda.synchronize()
+    turns = train_turns(cfg, lambda graphs: loop.Trainer(
+        cfg, tc, device=dev, graphs=graphs), n=32, windows=3)
     launches, bwd_launches = wk.launches, wk.bwd_launches  # path ends
-    ms = [events[w].elapsed_time(events[w + 1]) / n for w in range(windows)]
-    steps = n * windows
+    steps = turns.pop("steps")
     assert (launches, bwd_launches) == (3 * steps, steps), (launches,
                                                             bwd_launches)
-    assert all(np.isfinite(out[k]) for k in TRAIN_METRICS), out
-    rt = tr.rt
+    rt = turns.pop("trainers")[True].rt
     ema_gap = max(float((rt.ema[k] - p.detach()).abs().max())
                   for k, p in rt.gen.named_parameters())
     assert ema_gap > 0, ema_gap
-    assert rt.step == 3 + steps
-    med = sorted(ms)[windows // 2]
-    res = {"ms_per_step": med, "ms_per_step_windows": ms,
-           "steps_per_s": 1e3 / med, "samples_per_s": 16e3 / med,
-           "steps": steps, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    med = turns["graphed"]["ms_per_step"]
+    res = {"ms_per_step": med, "steps_per_s": 1e3 / med,
+           "samples_per_s": 16e3 / med, **turns, "steps": steps,
            "warp_launches": launches, "warp_bwd_launches": bwd_launches,
            "warp_launches_per_step": launches / steps,
            "warp_bwd_launches_per_step": bwd_launches / steps,
            "ema_max_abs_gap": ema_gap, "f32_parity": parity,
-           "assembly_max_abs_err": assembly_err,
-           "metrics": {k: out[k] for k in TRAIN_METRICS}}
+           "assembly_max_abs_err": assembly_err}
 
     # (c) pass 2 (4x along x, D factors (2, 1)), bf16: 4 steps through
     # Trainer.fit, the first with R1
@@ -841,6 +842,76 @@ def phase_train(dev, wk):
                     "metrics": {k: out2[k] for k in TRAIN_METRICS}}
     print("   train " + json.dumps(res), flush=True)
     done(t0)
+    return res
+
+
+def _graph_pool_bytes():
+    """Bytes of the device memory segments that CUDA graphs' private
+    pools hold."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def train_turns(cfg, make, n, windows):
+    """An eager and a graphed trainer (``make(graphs)``), each warmed up
+    until every program has run twice (two lazy R1 steps and one more),
+    timed in turns (eager, graphed, graphed, eager) of ``windows`` windows
+    of ``n`` steps between CUDA events, then profiled for 8 steps each
+    (mpgan_torch.profiling.train_profile), which must show 3 triplet
+    forward and 1 triplet backward warp kernels per step. → per way the
+    median ms per step and the windows, the last metrics, peak allocated
+    bytes over its turns, its profile split, and the graphs' pool bytes;
+    with the trainers and the steps both took in all."""
+    from mpgan_torch import profiling
+
+    trainers, its, start, out = {}, {}, {}, {}
+    ms = {False: [], True: []}
+    peak = {False: 0, True: 0}
+    warm = 2 * max(cfg.loss.r1_interval, 1) + 1
+    for graphs in (False, True):
+        tr = trainers[graphs] = make(graphs)
+        assert tr.graphs == graphs
+        its[graphs] = start[graphs] = tr.runtime().step
+        tr.fit(its[graphs] + warm, start_it=its[graphs], log_every=warm)
+        its[graphs] += warm
+    torch.cuda.synchronize()
+    pool_bytes = _graph_pool_bytes()
+    for graphs in (False, True, True, False):
+        tr = trainers[graphs]
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(windows + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events[0].record()
+        for w in range(windows):
+            out[graphs] = tr.fit(its[graphs] + n, start_it=its[graphs],
+                                 log_every=n)
+            its[graphs] += n
+            events[w + 1].record()
+        torch.cuda.synchronize()
+        peak[graphs] = max(peak[graphs], torch.cuda.max_memory_allocated())
+        ms[graphs] += [events[w].elapsed_time(events[w + 1]) / n
+                       for w in range(windows)]
+    res = {"trainers": trainers, "graph_pool_bytes": pool_bytes}
+    for graphs in (False, True):
+        assert all(np.isfinite(out[graphs][k]) for k in TRAIN_METRICS), out
+        prof, _ = profiling.train_profile(trainers[graphs], its[graphs], 8)
+        its[graphs] += 8
+        assert trainers[graphs].rt.step == its[graphs]
+        warp = prof["warp_kernels_per_step"]
+        assert warp == {"warp2d_triplet": 3.0, "warp2d_triplet_bwd": 1.0}, (
+            graphs, warp)
+        res["graphed" if graphs else "eager"] = {
+            "ms_per_step": sorted(ms[graphs])[len(ms[graphs]) // 2],
+            "ms_per_step_windows": ms[graphs],
+            "peak_mem_bytes": peak[graphs],
+            "metrics": {k: out[graphs][k] for k in TRAIN_METRICS},
+            "profile": {k: prof[k] for k in (
+                "wall_ms_per_step", "kernel_ms_per_step",
+                "device_busy_share", "host_launches_per_step",
+                "host_launches_by_call", "device_activities_per_step",
+                "warp_kernels_per_step", "warp_kernel_device_ms_by_name")}}
+    res["steps"] = sum(its[g] - start[g] for g in its)
     return res
 
 
@@ -1027,31 +1098,20 @@ def phase_cli(dev, wk):
             ds.lr).to(dev), 4)
         assert finals.shape == (8, 128, 128, 128, 1)
         tc3 = TileCreator(ds, 16, 0.0, device=dev, final=finals)
-        tr3 = loop.Trainer(cfg, tc3, dev, pass_no=3)
-        it = tr3.restore(run3, ckpt.latest_model_no(run3))
-        tr3.fit(it + 2, start_it=it, log_every=2)          # warm-up
-        it += 2
-        n, windows = 16, 2
-        events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(windows + 1)]
+
+        def restored(graphs):
+            tr3 = loop.Trainer(cfg, tc3, dev, pass_no=3, graphs=graphs)
+            assert tr3.restore(run3, ckpt.latest_model_no(run3)) == n3
+            return tr3
         wk.launches = wk.bwd_launches = 0
-        torch.cuda.synchronize()
-        events[0].record()
-        for w in range(windows):
-            out3 = tr3.fit(it + (w + 1) * n, start_it=it + w * n,
-                           log_every=n)
-            events[w + 1].record()
-        torch.cuda.synchronize()
-        assert (wk.launches, wk.bwd_launches) == (3 * n * windows,
-                                                  n * windows)
-        assert all(np.isfinite(out3[k]) for k in TRAIN_METRICS), out3
-        ms3 = [events[w].elapsed_time(events[w + 1]) / n
-               for w in range(windows)]
+        turns = train_turns(cfg, restored, n=32, windows=3)
+        del turns["trainers"]
+        steps = turns["steps"]
+        assert (wk.launches, wk.bwd_launches) == (3 * steps, steps)
         res["pass3"] = {"cli_steps": n3, "warp_launches": launches3[0],
-                        "warp_bwd_launches": launches3[1],
-                        "ms_per_step_windows": ms3,
-                        "metrics": {k: last[k] for k in TRAIN_METRICS}}
-        del tr3, tc3, finals
+                        "warp_bwd_launches": launches3[1], **turns,
+                        "cli_metrics": {k: last[k] for k in TRAIN_METRICS}}
+        del tc3, finals
 
         # (d) out 1, three passes, two frames: test_0007
         res["out1_3pass_s"] = run_cli(
@@ -1351,8 +1411,29 @@ REPRO_GATED = "kernel_bwd_deterministic"
 REPRO_PAIRS = 3
 
 
+def _graphed_equals_eager(cfg, tc, dev, iters):
+    """``iters`` steps of ``cfg`` stepping eagerly and replaying CUDA
+    graphs from the same seed → (every tensor of each run's state, the
+    last metrics of each, the graphed run's programs: uses and whether
+    captured, by (fade, R1))."""
+    from mpgan_torch.train import loop
+
+    states, metrics = [], []
+    for graphs in (False, True):
+        tr = loop.Trainer(cfg, tc, device=dev, graphs=graphs)
+        metrics.append(tr.fit(iters, log_every=iters))
+        torch.cuda.synchronize()
+        states.append(_state_tensors(tr.state()))
+    programs = {f"fade={k[0]},r1={k[1]}": [p.uses, p.graph is not None]
+                for k, p in tr.programs.programs.items()}
+    return states, metrics, programs
+
+
 def phase_repro(dev, wk):
     from mpgan_torch import cli
+    from mpgan_torch import config as cfgmod
+    from mpgan_torch.data.loader import FluidDataLoader
+    from mpgan_torch.data.pipeline import TileCreator
     from mpgan_torch.models import generator
     from mpgan_torch.ops import upsample
     from mpgan_torch.train import checkpoint as ckpt
@@ -1368,6 +1449,12 @@ def phase_repro(dev, wk):
     def plain_bwd_step_init(self, *args, **kwargs):
         step_init(self, *args, **kwargs)
         self.warp_bwds_per_step = 0     # the step's own launch check
+    # the seven ways step eagerly, as the runs they are compared with did;
+    # the gated way then also replays graphs, against its eager run
+    trainer_init = loop.Trainer.__init__
+
+    def eager_trainer_init(self, *args, **kwargs):
+        trainer_init(self, *args, graphs=False, **kwargs)
     cudnn = torch.backends.cudnn
     flags = (cudnn.deterministic, cudnn.benchmark)
     with tempfile.TemporaryDirectory() as d:
@@ -1379,6 +1466,7 @@ def phase_repro(dev, wk):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
+            loop.Trainer.__init__ = eager_trainer_init
             for way, (interp, plain, determ) in REPRO_WAYS.items():
                 up = _interpolate_upsample if interp else fixed_up[0]
                 generator.upsample_nchw = upsample.upsample_nchw = up
@@ -1405,7 +1493,40 @@ def phase_repro(dev, wk):
                             "median": sorted(gaps)[REPRO_PAIRS // 2],
                             "warp_launches": wk.launches,
                             "warp_bwd_kernel_launches": wk.bwd_launches}
+
+            # the gated way replaying graphs against stepping eagerly: 32
+            # steps of the recipe (R1 at steps 0 and 16), then a useGrowing
+            # stretch (stage 1 for 12 steps, stage 2 fading over 8 with R1
+            # at step 16, stable for 4)
+            loop.Trainer.__init__ = trainer_init
+            generator.upsample_nchw, upsample.upsample_nchw = fixed_up
+            wk.align_triplet_kernel_bwd = kernel_bwd
+            loop.TrainStep.__init__ = step_init
+            cudnn.deterministic, cudnn.benchmark = True, False
+            cfg = cfgmod.from_cli(f32.split())
+            tc = TileCreator(FluidDataLoader(f"{d}/data/", 1000, 1000, 0,
+                                             4).get(), 16, 0.0, device=dev)
+            grow = cfgmod.from_cli((f32 + "useGrowing 1 alphaIters 8 "
+                                    "stableIters 4").split())
+            for name, c, iters in (("graphed_recipe", cfg, 32),
+                                   ("graphed_growing", grow, 24)):
+                wk.launches = wk.bwd_launches = 0
+                (a, b), (ma, mb), programs = _graphed_equals_eager(
+                    c, tc, dev, iters)
+                assert all(bool(torch.isfinite(t.float()).all())
+                           for t in a.values())
+                res[name] = {
+                    "steps": iters, "max_abs_gap": _state_gap(a, b),
+                    "metrics_equal": all(ma[k] == mb[k]
+                                         for k in TRAIN_METRICS),
+                    "programs_uses_captured": programs,
+                    "warp_launches": wk.launches,
+                    "warp_bwd_kernel_launches": wk.bwd_launches}
+                assert (wk.launches, wk.bwd_launches) == (6 * iters,
+                                                          2 * iters)
+            del tc
         finally:
+            loop.Trainer.__init__ = trainer_init
             generator.upsample_nchw, upsample.upsample_nchw = fixed_up
             wk.align_triplet_kernel_bwd = kernel_bwd
             loop.TrainStep.__init__ = step_init
@@ -1417,8 +1538,21 @@ def phase_repro(dev, wk):
     assert gated["largest"] == 0.0, (REPRO_GATED, gated)
     # the kernel ran in every run (the step checks its own 3 + 1 launches)
     assert gated["warp_bwd_kernel_launches"] >= 2 * REPRO_PAIRS, gated
+    for name in ("graphed_recipe", "graphed_growing"):
+        r = res[name]
+        assert r["max_abs_gap"] == 0.0 and r["metrics_equal"], (name, r)
+    # replays ran: the recipe's two programs and the growing stretch's
+    # stable and fading programs were captured
+    assert res["graphed_recipe"]["programs_uses_captured"] == {
+        "fade=False,r1=True": [2, True],
+        "fade=False,r1=False": [30, True]}, res["graphed_recipe"]
+    assert res["graphed_growing"]["programs_uses_captured"] == {
+        "fade=True,r1=False": [7, True], "fade=True,r1=True": [1, False],
+        "fade=False,r1=False": [4, True]}, res["graphed_growing"]
     done(t0, **{k: f"{v['largest']:.3g}/{v['median']:.3g}"
-                for k, v in res.items()})
+                for k, v in res.items() if k in REPRO_WAYS},
+         graphed_gaps=[res[k]["max_abs_gap"] for k in ("graphed_recipe",
+                                                       "graphed_growing")])
     return res
 
 

@@ -92,8 +92,9 @@ class TrainConfig:
     # generator weight EMA (0 = off, typical 0.999)
     ema_decay: float = 0.0
     data_axis: str = "data"
-    # steps per device dispatch in the JAX package; the port runs one step
-    # per Python iteration whatever the value
+    # steps per device dispatch in the JAX package; the port dispatches
+    # one step at a time whatever the value (a CUDA graph replay on a card,
+    # which waits on nothing on the host, so there is nothing to amortise)
     steps_per_dispatch: int = 0
     profile_dir: str = ""           # torch.profiler trace of fit, "" = off
     debug_nans: bool = False        # raise at the first non-finite update

@@ -20,7 +20,11 @@ Differences from a naive translation, each held by a test:
   width depends on the input size, so the module is built for one input
   size (``in_hw``);
 - ``jax.image.resize(..., "linear")`` antialiases when it downsamples; the
-  port's :func:`downsample` is ``F.interpolate(..., antialias=True)``.
+  port's :func:`downsample` is ``F.interpolate(..., antialias=True)``,
+  with a backward of its own: on CUDA ``F.interpolate``'s scatters with
+  atomics, so a run through a fade would not reproduce bit for bit
+  (``_Downsample``, as ``mpgan_torch.ops.upsample`` does for the
+  upsample).
 
 A model is built for one growth stage (``len(factors)`` stages, as the
 flax tree at that stage), computes in ``dtype`` with float32 parameters,
@@ -29,6 +33,7 @@ and returns float32 logits (B, 1) and features (NHWC).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -37,23 +42,100 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mpgan_torch.models import init
+from mpgan_torch.models.growing import fade_blend
 from mpgan_torch.ops.upsample import upsample_any
 
 
-def downsample(x: torch.Tensor, fh: int, fw: int) -> torch.Tensor:
-    """``jax.image.resize(x, (B, H/fh, W/fw, C), "linear")`` of an NCHW
-    tensor: an antialiased (triangle-filter) linear downsample. The CPU
-    has no half-precision antialiased kernel: there a bf16 or f16 input
-    is filtered in float32 and rounded once, as the CUDA kernel
-    accumulates it."""
-    if fh == 1 and fw == 1:
-        return x
+def _interpolate_down(x: torch.Tensor, fh: int, fw: int) -> torch.Tensor:
     h, w = x.shape[-2:]
     low = x.device.type == "cpu" and x.dtype in (torch.bfloat16,
                                                  torch.float16)
     out = F.interpolate(x.float() if low else x, size=(h // fh, w // fw),
                         mode="bilinear", align_corners=False, antialias=True)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def _half_taps(n_in: int, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """(4, n_in/2) weights of the antialiased 2-fold downsample of ``n_in``
+    samples in ``dtype`` (float32 or float64): row k of output i is the weight of input 2i − 1 + k
+    (0 where that is off the edge), read off the forward applied to the
+    identity, so that they are the forward's own. Made once per device: a
+    per-call host→device copy would synchronise."""
+    n = n_in // 2
+    # along the last axis: the CPU kernel misreads a 1-wide input
+    eye = torch.eye(n_in, device=device, dtype=dtype).view(n_in, 1, 1,
+                                                           n_in)
+    w = F.interpolate(eye, size=(1, n), mode="bilinear",
+                      align_corners=False, antialias=True)[:, 0, 0, :].T
+    pos = torch.arange(n, device=device) * 2 - 1
+    taps = torch.stack([torch.where((pos + k >= 0) & (pos + k < n_in),
+                                    w.gather(1, (pos + k).clamp(0, n_in - 1)
+                                             .unsqueeze(1))[:, 0], 0.0)
+                        for k in range(4)])
+    if not torch.allclose(taps.sum(0), w.sum(1)):
+        raise AssertionError("the 2-fold downsample reads more than 4 taps")
+    return taps
+
+
+def _half_adjoint(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The adjoint of the antialiased 2-fold downsample along ``dim``
+    (size n → 2n), in a fixed order: input 2i gets taps 1 of output i and
+    3 of output i − 1, input 2i + 1 taps 2 of output i and 0 of output
+    i + 1."""
+    n = g.shape[dim]
+    t = _half_taps(2 * n, g.device, g.dtype)
+    shape = [1] * g.dim()
+    shape[dim] = n
+    c = [g * t[k].view(shape) for k in range(4)]
+    even, odd = c[1], c[2]
+    if n > 1:
+        even = torch.cat([even.narrow(dim, 0, 1), even.narrow(dim, 1, n - 1)
+                          + c[3].narrow(dim, 0, n - 1)], dim)
+        odd = torch.cat([odd.narrow(dim, 0, n - 1)
+                         + c[0].narrow(dim, 1, n - 1),
+                         odd.narrow(dim, n - 1, 1)], dim)
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+class _Downsample(torch.autograd.Function):
+    """``F.interpolate``'s antialiased forward; the fixed-order adjoint
+    backward for factors 1 and 2 (float32 sums for half-precision
+    gradients). The backward is made of differentiable ops, so a double
+    backward (R1) goes through it."""
+
+    @staticmethod
+    def forward(ctx, x, fh, fw):
+        ctx.factors = (fh, fw)
+        return _interpolate_down(x, fh, fw)
+
+    @staticmethod
+    def backward(ctx, g):
+        fh, fw = ctx.factors
+        if not {fh, fw} <= {1, 2}:
+            raise NotImplementedError(
+                f"the downsample's gradient takes factors 1 and 2, not "
+                f"({fh}, {fw})")
+        acc = (torch.float32 if g.dtype in (torch.float16, torch.bfloat16)
+               else g.dtype)
+        gx = g.to(acc)
+        if fw == 2:
+            gx = _half_adjoint(gx, 3)
+        if fh == 2:
+            gx = _half_adjoint(gx, 2)
+        return gx.to(g.dtype), None, None
+
+
+def downsample(x: torch.Tensor, fh: int, fw: int) -> torch.Tensor:
+    """``jax.image.resize(x, (B, H/fh, W/fw, C), "linear")`` of an NCHW
+    tensor: an antialiased (triangle-filter) linear downsample, with the
+    fixed-order backward (factors 1 and 2). The CPU has no half-precision
+    antialiased kernel: there a bf16 or f16 input is filtered in float32
+    and rounded once, as the CUDA kernel accumulates it."""
+    if fh == 1 and fw == 1:
+        return x
+    return _Downsample.apply(x, fh, fw)
 
 
 def downsample_nhwc(x: torch.Tensor, fh: int, fw: int) -> torch.Tensor:
@@ -126,11 +208,12 @@ class Discriminator(nn.Module):
         return min(max(self.base_filters // (2 ** k), self.min_filters),
                    self.max_filters)
 
-    def forward(self, x: torch.Tensor, alpha: float = 1.0,
+    def forward(self, x: torch.Tensor, alpha: float | torch.Tensor = 1.0,
                 fade: bool = False, return_features: bool = False):
         """x (B, H, W, C) NHWC → logits (B, 1) float32 [, features: the
         output of every ``down_k`` and ``conv_k`` (after the fade blend),
-        NHWC float32]."""
+        NHWC float32]. ``alpha``: the fade weight, a float or a 0-d float64
+        tensor (:func:`mpgan_torch.models.growing.fade_blend`)."""
         stage = len(self.factors)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
 
@@ -151,7 +234,7 @@ class Discriminator(nn.Module):
             if k == stage - 1 and fading:
                 # blend after the newest stage's whole block, so that at
                 # alpha=0 the net is exactly the previous-stage D
-                h = alpha * h + (1.0 - alpha) * old
+                h = fade_blend(alpha, h, old)
             feats.append(h)
 
         flat = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # NHWC order

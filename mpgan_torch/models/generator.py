@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mpgan_torch.models import init
+from mpgan_torch.models.growing import fade_blend
 from mpgan_torch.ops.upsample import upsample_nchw
 
 
@@ -95,7 +96,10 @@ class Generator(nn.Module):
                 width, out_channels, 3, generator, padding=1))
 
     def forward(self, x: torch.Tensor, stage: int | None = None,
-                alpha: float = 1.0, fade: bool = False) -> torch.Tensor:
+                alpha: float | torch.Tensor = 1.0,
+                fade: bool = False) -> torch.Tensor:
+        """``alpha``: the fade weight, a float or a 0-d float64 tensor
+        (:func:`mpgan_torch.models.growing.fade_blend`)."""
         n_stages = len(self.factors)
         if stage is None:
             stage = n_stages
@@ -114,15 +118,19 @@ class Generator(nn.Module):
             for i in range(self.n_res_blocks):
                 block = getattr(self, f"block_{k}_{i}")
                 if self.remat and torch.is_grad_enabled():
-                    h = checkpoint(block, h, use_reentrant=False)
+                    # the blocks draw no random numbers, so there is no
+                    # RNG state to stash (reading it is refused while a
+                    # CUDA graph captures)
+                    h = checkpoint(block, h, use_reentrant=False,
+                                   preserve_rng_state=False)
                 else:
                     h = block(h)
             heads.append(_conv(getattr(self, f"head_{k}"), h))
 
         out = heads[stage - 1]
         if stage > 1 and fade:
-            out = alpha * out + (1.0 - alpha) * upsample_nchw(
-                heads[stage - 2], *self.factors[stage - 1])
+            out = fade_blend(alpha, out, upsample_nchw(
+                heads[stage - 2], *self.factors[stage - 1]))
 
         if self.global_skip:
             fh = fw = 1

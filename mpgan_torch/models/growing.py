@@ -38,6 +38,21 @@ def subtree_check(small: Mapping[str, torch.Tensor],
     return all(k in big and v.shape == big[k].shape for k, v in small.items())
 
 
+def fade_blend(alpha, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``α·new + (1−α)·old``, the fade-in blend of a growing stage.
+
+    ``alpha`` is a float or a 0-d float64 tensor (a CUDA graph's input,
+    filled before each replay). Both give the same bits: a tensor's two
+    weights are rounded to float32 from float64, as PyTorch rounds a
+    Python scalar, and each product is taken in float32 and rounded to the
+    activation dtype before the sum, as a product with a scalar is."""
+    if not torch.is_tensor(alpha):
+        return alpha * new + (1.0 - alpha) * old
+    a, b = alpha.to(torch.float32), (1.0 - alpha).to(torch.float32)
+    return ((new.float() * a).to(new.dtype)
+            + (old.float() * b).to(old.dtype))
+
+
 def alpha_schedule(it: int, stage_start_it: int, alpha_iters: int) -> float:
     """Linear 0→1 fade over ``alpha_iters`` after a stage transition."""
     if alpha_iters <= 0:

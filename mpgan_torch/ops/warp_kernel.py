@@ -47,7 +47,10 @@ DEFAULT_MAX_DISP = 8
 
 # Kernel launches since the last reset, incremented only where a kernel is
 # launched: forward kernels (single-field and triplet) and backward
-# kernels. chip_smoke.py resets them before driving each path.
+# kernels. A CUDA graph's replay launches the kernels it captured and adds
+# them here; its capture, which records them without launching, leaves
+# the counts as they were (mpgan_torch.train.graphed). chip_smoke.py
+# resets them before driving each path.
 launches = 0
 bwd_launches = 0
 

@@ -15,17 +15,20 @@ Profiles (torch.profiler, CPU + CUDA activities) after warm-up:
 - the train step of the flagship recipe (mpgan_torch.train.recipe: pass 1,
   4x, B=16, tile 16, temporal D, hinge + lazy R1 + TTUR + EMA, bf16), and
   the same recipe as a pass-3 refiner (64² full-resolution patches, the
-  HR volumes as its input source), through Trainer.fit after 3 warm-up
-  steps: first 16 steps without the
-  profiler (wall ms per step between CUDA events, and the host time of
-  the warp path, forward and backward apart, timed by wrapping them:
-  :func:`warp_path_probe`), then 8 steps under the profiler (kernel time
-  by name, device busy share, and the warp path's device launches and
-  device time, forward and backward apart, from ``record_function``
-  ranges around the same wrapped calls; the backward kernel's, which the
-  trace leaves out of its range, by name and by its launch counter).
-  The profiler adds host cost to every op, so its busy share is a lower
-  bound for the unprofiled run.
+  HR volumes as its input source), through Trainer.fit, stepping eagerly
+  and replaying CUDA graphs, each after 17 warm-up steps (every program
+  captured): first 16 steps without the profiler (wall ms per step
+  between CUDA events; stepping eagerly also the host time of the warp
+  path, forward and backward apart, timed by wrapping them:
+  :func:`warp_path_probe`), then 8 steps under the profiler
+  (:func:`train_profile`: kernel time by name, device busy share, host
+  launches per step, the warp kernels per step by name; stepping eagerly
+  also the warp path's device launches and device time, forward and
+  backward apart, from ``record_function`` ranges around the same
+  wrapped calls, the backward kernel's, which the trace leaves out of
+  its range, by name and by its launch counter). The profiler adds host
+  cost to every op, so its busy share is a lower bound for the
+  unprofiled run.
 
 Prints one JSON object, and also writes it to ``out.json`` when a path is
 given. Needs a card; imports no JAX.
@@ -34,6 +37,7 @@ given. Needs a card; imports no JAX.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +54,19 @@ from mpgan_torch.train import loop, losses, recipe
 
 # record_function ranges of warp_path_probe
 PROBE_RANGES = ("warp_path_fwd", "warp_path_bwd")
+# the CUDA API calls (cuda* and cu*) that put work on a stream: a step's
+# host launches
+LAUNCH_CALLS = re.compile(
+    r"cu(da)?(LaunchKernel\w*|GraphLaunch|Memcpy\w*Async|Memset\w*Async)")
+# the warp kernels as the trace names them → the names chip_smoke.py and
+# PERF.md give them
+WARP_TRACE_NAMES = (("warp2d_triplet_kernel", "warp2d_triplet"),
+                    ("warp2d_bwd_kernel<2", "warp2d_triplet_bwd"),
+                    ("warp2d_bwd_kernel<1", "warp2d_bwd"),
+                    ("warp2d_kernel", "warp2d"))
+# steps before a flagship window: every program has run and been captured
+# (lazy R1 every 16 steps: the program with R1 is captured at step 16)
+TRAIN_WARMUP = 17
 
 
 def profiled(fn, n):
@@ -143,15 +160,63 @@ def _range_device(events, name) -> tuple[float, int]:
     return us, n
 
 
-def train_breakdown(dev, pass_no: int = 1) -> dict:
-    """The flagship train step of pass ``pass_no``: unprofiled times, then
-    a profile."""
+def warp_name(trace_name: str) -> str | None:
+    """The warp kernel a trace's kernel name is, or None."""
+    for key, name in WARP_TRACE_NAMES:
+        if key in trace_name:
+            return name
+    return None
+
+
+def train_profile(tr, it: int, n: int):
+    """Profile ``n`` steps of the trainer ``tr`` from iteration ``it``
+    (after its warm-up) → (summary, the profiler's events). The summary:
+    wall and kernel ms per step, the device busy share, host launches per
+    step (the calls that put work on a stream, by name, and their sum),
+    device activities per step, the warp kernels per step and their
+    device ms by name, and the top kernels and aten ops."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.fit(it + n, start_it=it, log_every=n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    kernels, ops, kern_us = _tables(avgs)
+    launches = {e.key: e.count / n for e in avgs
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and LAUNCH_CALLS.fullmatch(e.key)}
+    warp: dict[str, float] = {}
+    warp_ms: dict[str, float] = {}
+    for name, us, count in kernels:
+        if warp_name(name):
+            k = warp_name(name)
+            warp[k] = warp.get(k, 0) + count / n
+            warp_ms[k] = warp_ms.get(k, 0) + us / n / 1e3
+    return {
+        "steps": n, "wall_ms_per_step": wall_us / n / 1e3,
+        "kernel_ms_per_step": kern_us / n / 1e3,
+        "device_busy_share": kern_us / wall_us,
+        "host_launches_per_step": sum(launches.values()),
+        "host_launches_by_call": launches,
+        "device_activities_per_step": sum(r[2] for r in kernels) / n,
+        "warp_kernels_per_step": warp,
+        "warp_kernel_device_ms_per_step": sum(warp_ms.values()),
+        "warp_kernel_device_ms_by_name": warp_ms,
+        "top_kernels": _table(kernels, n, "step"),
+        "top_aten_ops": _table(ops, n, "step")}, prof.events()
+
+
+def train_breakdown(dev, pass_no: int = 1, graphs: bool = False) -> dict:
+    """The flagship train step of pass ``pass_no``, stepping eagerly or
+    replaying CUDA graphs: unprofiled times, then a profile."""
     tc = TileCreator(recipe.synthetic_dataset(), 16, density_threshold=0.0,
                      device=dev)
     tr = loop.Trainer(recipe.flagship_config("bfloat16"), tc, device=dev,
-                      pass_no=pass_no)
-    tr.fit(3, log_every=3)
-    it = 3
+                      pass_no=pass_no, graphs=graphs)
+    it = TRAIN_WARMUP
+    tr.fit(it, log_every=it)
 
     n = 16
     with warp_path_probe(ranges=False) as host:
@@ -169,47 +234,37 @@ def train_breakdown(dev, pass_no: int = 1) -> dict:
 
     m = 8
     wk.launches = wk.bwd_launches = 0
+    # a replay runs no Python: the wrapped calls, and their ranges, run
+    # only where the trainer steps eagerly
     with warp_path_probe(ranges=True):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr.fit(it + m, start_it=it, log_every=m)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    kernels, ops, kern_us = _tables(prof.key_averages())
+        prof, events = train_profile(tr, it, m)
     fwd_us, fwd_n = _range_device(events, "warp_path_fwd")
     bwd_us, bwd_n = _range_device(events, "warp_path_bwd")
-    warp_us = sum(r[1] for r in kernels if "warp2d" in r[0])
     # by name: the profiler leaves a launch made through ctypes in the
     # autograd engine's thread out of the range around it
-    warp_bwd_us = sum(r[1] for r in kernels if "warp2d_bwd" in r[0])
+    warp_bwd_ms = sum(v for k, v in prof["warp_kernel_device_ms_by_name"]
+                      .items() if k.endswith("_bwd"))
+    prof.update(
+        warp_path_fwd_launches_per_step=fwd_n / m,
+        warp_path_fwd_device_ms_per_step=fwd_us / m / 1e3,
+        warp_path_bwd_launches_per_step=bwd_n / m,
+        warp_path_bwd_device_ms_per_step=bwd_us / m / 1e3,
+        warp_kernel_launches_per_step=wk.launches / m,
+        warp_bwd_kernel_launches_per_step=wk.bwd_launches / m,
+        warp_bwd_kernel_device_ms_per_step=warp_bwd_ms,
+        warp_kernel_device_share=(prof["warp_kernel_device_ms_per_step"]
+                                  / prof["kernel_ms_per_step"]))
     return {
         "recipe": f"flagship pass {pass_no} 4x, B=16 tile 16, bf16, "
                   "temporal D, hinge + lazy R1 (16) + TTUR + EMA",
+        "graphs": tr.graphs,
         "unprofiled": {
             "steps": n, "ms_per_step": step_ms,
             "steps_per_s": 1e3 / step_ms, "samples_per_s": 16e3 / step_ms,
             "warp_path_fwd_host_ms_per_step": fwd_host_ms,
             "warp_path_bwd_host_ms_per_step": bwd_host_ms,
             "warp_path_host_share": (fwd_host_ms + bwd_host_ms) / step_ms},
-        "profiled": {
-            "steps": m, "wall_ms_per_step": wall_us / m / 1e3,
-            "kernel_ms_per_step": kern_us / m / 1e3,
-            "device_busy_share": kern_us / wall_us,
-            "kernel_launches_per_step": sum(r[2] for r in kernels) / m,
-            "warp_path_fwd_launches_per_step": fwd_n / m,
-            "warp_path_fwd_device_ms_per_step": fwd_us / m / 1e3,
-            "warp_path_bwd_launches_per_step": bwd_n / m,
-            "warp_path_bwd_device_ms_per_step": bwd_us / m / 1e3,
-            "warp_kernel_launches_per_step": wk.launches / m,
-            "warp_bwd_kernel_launches_per_step": wk.bwd_launches / m,
-            "warp_kernel_device_ms_per_step": warp_us / m / 1e3,
-            "warp_bwd_kernel_device_ms_per_step": warp_bwd_us / m / 1e3,
-            "warp_kernel_device_share": warp_us / kern_us,
-            "top_kernels": _table(kernels, m, "step"),
-            "top_aten_ops": _table(ops, m, "step")}}
+        "profiled": prof}
 
 
 def main():
@@ -263,8 +318,10 @@ def main():
                 "wall_us_per_call": wall_us / n_calls,
                 "device_busy_share": kern_us / wall_us})
 
-    result["train_step"] = train_breakdown(dev)
-    result["train_step_pass3"] = train_breakdown(dev, pass_no=3)
+    for graphs in (False, True):
+        how = "graphed" if graphs else "eager"
+        result[f"train_step_{how}"] = train_breakdown(dev, 1, graphs)
+        result[f"train_step_pass3_{how}"] = train_breakdown(dev, 3, graphs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

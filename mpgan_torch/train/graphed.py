@@ -1,0 +1,143 @@
+"""The train step as CUDA graphs — the port's counterpart of the JAX
+package's jitted step (``mpgan_tpu/train/loop.py`` ``make_train_step``).
+
+JAX compiles one device program per (stage, fade) pair and runs the whole
+step in it: sampling, the D and Dt updates, lazy R1 as a ``lax.cond``,
+the G update and the EMA. Here one :class:`Program` holds one such program
+of a stage runtime, with lazy R1 chosen per program (a graph has no
+branches, and ``lax.cond`` runs one branch anyway), so a runtime has up to
+four: fade or stable, R1 or not (:class:`Programs`).
+
+A program's first use steps eagerly: it is the warm-up (cuDNN picks its
+algorithms, constants and the optimizer's moments are made, the kernels
+are built), and a real step. Its second use captures
+:meth:`mpgan_torch.train.loop.TrainStep.run` into a graph with its own
+memory pool and replays it, since capture records work without running
+it; every later use replays. Per program it holds:
+
+- the fade weight, a 0-d float64 tensor filled before each replay
+  (:func:`mpgan_torch.models.growing.fade_blend`);
+- the trainer's sampling generator, registered with the graph, so that
+  the seed the trainer sets before each iteration decides what a replay
+  draws, as it decides an eager step's draws;
+- the graph's output tensors, the step's metrics, which the next replay
+  overwrites;
+- the graph and its memory pool, released with the runtime at a growth
+  boundary or a restore.
+
+A replay reads nothing from the host and waits on nothing: per step the
+host fills the fade weight, reseeds the generator and launches the graph.
+The warp kernels' Python counters (:mod:`mpgan_torch.ops.warp_kernel`)
+run only where a wrapper is called; the launches that a capture records
+do not run then, so the counters are put back after a capture, and each
+replay adds the launches its graph holds. A failed capture or replay
+raises; nothing falls back to an eager step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpgan_torch.ops import warp_kernel
+
+
+class Graph:
+    """A function captured once as a CUDA graph and replayed: the capture
+    primitive of :class:`Program`.
+
+    ``Graph(fn, generator)`` captures ``fn()`` with ``generator`` (a CUDA
+    ``torch.Generator``) registered; :meth:`replay` runs it and returns
+    the outputs the capture returned; :meth:`reset` releases the graph and
+    its memory pool. ``launches`` is (forward, backward) warp kernel
+    launches in the graph.
+    """
+
+    @staticmethod
+    def available(device: torch.device) -> bool:
+        return torch.device(device).type == "cuda"
+
+    def __init__(self, fn, generator: torch.Generator):
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                f"torch {torch.__version__} cannot register a generator with "
+                "a CUDA graph (CUDAGraph.register_generator_state), which "
+                "the graphed train step draws its batches from")
+        graph.register_generator_state(generator)
+        n0 = (warp_kernel.launches, warp_kernel.bwd_launches)
+        with torch.cuda.graph(graph):
+            self.out = fn()
+        self.launches = (warp_kernel.launches - n0[0],
+                         warp_kernel.bwd_launches - n0[1])
+        # capture recorded these launches; they run at each replay
+        warp_kernel.launches, warp_kernel.bwd_launches = n0
+        self.graph = graph
+
+    def replay(self):
+        self.graph.replay()
+        warp_kernel.launches += self.launches[0]
+        warp_kernel.bwd_launches += self.launches[1]
+        return self.out
+
+    def reset(self) -> None:
+        self.graph.reset()
+        self.graph = self.out = None
+
+
+class Program:
+    """One device program of a stage runtime: ``step`` (a
+    :class:`~mpgan_torch.train.loop.TrainStep`) with lazy R1 on or off.
+    ``program(alpha) → metrics``; eager at its first use, captured at its
+    second, replayed after (module docstring). Does not advance the step
+    counter."""
+
+    def __init__(self, step, r1: bool, generator: torch.Generator):
+        self.step, self.r1, self.generator = step, r1, generator
+        self.alpha = torch.zeros((), dtype=torch.float64, device=step.device)
+        self.uses = 0
+        self.graph: Graph | None = None
+
+    def _run(self) -> dict:
+        return self.step.run(self.alpha, self.generator, self.r1)
+
+    def __call__(self, alpha: float) -> dict:
+        if self.step.fade:
+            self.alpha.fill_(alpha)
+        self.uses += 1
+        if self.uses == 1:
+            return self.step.run_checked(self.alpha, self.generator, self.r1)
+        if self.graph is None:
+            self.graph = Graph(self._run, self.generator)
+            self.step.check_launches(self.graph.launches)
+        return dict(self.graph.replay())
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
+
+class Programs:
+    """The programs of one stage runtime, by (fade, lazy R1), made at
+    first use. ``programs(fade, alpha) → metrics`` runs the step the
+    runtime's step counter calls for and advances the counter; the
+    caller seeds the generator before each call."""
+
+    def __init__(self, rt, generator: torch.Generator):
+        self.rt, self.generator = rt, generator
+        self.programs: dict[tuple[bool, bool], Program] = {}
+
+    def __call__(self, fade: bool, alpha: float) -> dict:
+        step = self.rt.step_fade if fade else self.rt.step_stable
+        key = (fade, step.r1_due())
+        if key not in self.programs:
+            self.programs[key] = Program(step, key[1], self.generator)
+        metrics = self.programs[key](alpha)
+        self.rt.step += 1
+        return metrics
+
+    def release(self) -> None:
+        """Release every program's graph and memory pool."""
+        for program in self.programs.values():
+            program.release()
+        self.programs.clear()

@@ -10,7 +10,13 @@ then the EMA copy of G, then counts the step. :class:`Trainer` drives the
 growth schedule, rebuilds the models at a stage boundary (carrying the
 learned weights forward) and logs metrics.
 
-Where eager PyTorch differs from the JAX package's one jitted program:
+On a CUDA card a single-process run without ``debugNans`` replays each
+step as a CUDA graph (:mod:`mpgan_torch.train.graphed`), the counterpart
+of the JAX package's jitted step: one graph per device program (stage,
+fade, lazy R1 on or off), captured at the program's second use. On the
+CPU, inside a process group and with ``debugNans`` it steps eagerly.
+
+Where the port differs from the JAX package's one jitted program:
 - work both discriminator losses share is computed once per D-run: the
   fake under ``no_grad``, the conditioned inputs and the fake and real
   triplets; then the Ds and Dt losses take two backward passes. The
@@ -19,12 +25,15 @@ Where eager PyTorch differs from the JAX package's one jitted program:
   3 times forward per step (the fake and real triplets of the D-run, the
   fake triplet of the G-run, one fused launch each) and once backward (the
   G-run), and the step checks this through the kernels' launch counters;
-- lazy R1 is a Python branch on the host-side step counter;
+- lazy R1 is chosen on the host from the step counter: the step with R1
+  and the step without it are two programs (JAX's ``lax.cond`` runs one
+  branch of one program);
 - metrics stay device tensors; the trainer reads them only at log points;
 - a parameter that no loss reaches gets a zero gradient, so that Adam
   moves it as optax does (optax updates every leaf every step);
-- ``stepsPerDispatch`` is accepted and means one step per Python
-  iteration.
+- ``stepsPerDispatch`` is accepted and means one step per dispatch: a
+  graph replay (or an eager step) waits on nothing on the host, so
+  there is no dispatch latency for K steps to amortise.
 
 A batch is a dict of NHWC tensors with the JAX pipeline's keys: ``lr``,
 ``lr_prev``, ``lr_next`` for pass 1; ``interm`` (pass 2) or ``final``
@@ -91,7 +100,7 @@ from mpgan_torch.models import growing
 from mpgan_torch.ops import warp_kernel
 from mpgan_torch.parallel import mesh as pmesh
 from mpgan_torch.train import checkpoint as ckpt
-from mpgan_torch.train import losses
+from mpgan_torch.train import graphed, losses
 from mpgan_torch.utils.liveness import touch_heartbeat
 
 _PASS_INPUT_KEY = {1: "lr", 2: "interm", 3: "final"}
@@ -195,9 +204,12 @@ def _make_opt(cfg: Config, params, disc: bool,
     lr = cfg.train.learning_rate
     if disc and cfg.train.lr_disc > 0:
         lr = cfg.train.lr_disc
+    # on a card the step counts live on the device (fused), and capturable
+    # lets a CUDA graph capture the update; the arithmetic is the same
+    cuda = device.type == "cuda"
     return torch.optim.Adam(params, lr=lr, betas=(cfg.train.beta1, 0.999),
-                            eps=cfg.train.adam_eps,
-                            fused=device.type == "cuda")
+                            eps=cfg.train.adam_eps, fused=cuda,
+                            capturable=cuda)
 
 
 def _load_opt(opt: torch.optim.Optimizer, sd: dict) -> None:
@@ -258,6 +270,9 @@ class TrainStep:
     """One train step at ``(stage, fade)``: ``step(alpha, rng) → metrics``
     (device tensors, or 0.0 for losses the configuration skips).
 
+    :meth:`run` is the step's device work alone, with lazy R1 chosen by
+    the caller: it reads no host state that a step changes, so that a
+    CUDA graph can capture it. ``__call__`` is the eager step around it.
     ``sample`` is the batch source (:func:`make_sampler`); tests replace it
     to inject a batch.
     """
@@ -341,10 +356,10 @@ class TrainStep:
         return losses.align_triplet(prev, cur, nxt, vel, self.use_kernel,
                                     self.cfg.loss.warp_max_disp)
 
-    def _d_update(self, net, opt, params, real, fake, alpha, rng,
+    def _d_update(self, net, opt, params, real, fake, alpha, rng, r1: bool,
                   what: str) -> torch.Tensor:
         """One update of a discriminator on real and fake inputs (scored as
-        one batch): adversarial loss, lazy R1 and WGAN-GP."""
+        one batch): adversarial loss, lazy R1 (with ``r1``) and WGAN-GP."""
         lcfg = self.cfg.loss
 
         def disc(x):
@@ -354,8 +369,8 @@ class TrainStep:
         loss = losses.d_loss(real_logits, fake_logits, lcfg.label_smooth,
                              lcfg.gan_loss)
         # lazy R1 (StyleGAN2): every r1Interval-th step, γ scaled ×interval
-        k = max(lcfg.r1_interval, 1)
-        if lcfg.r1_gamma > 0 and self.rt.step % k == 0:
+        if r1:
+            k = max(lcfg.r1_interval, 1)
             loss = loss + 0.5 * lcfg.r1_gamma * k * losses.r1_penalty(
                 disc, real)
         if lcfg.gp_weight > 0:
@@ -367,7 +382,7 @@ class TrainStep:
         _update(opt, params, loss, self._nan_check(what), self.share)
         return loss.detach()
 
-    def _d_run(self, rng, alpha):
+    def _d_run(self, rng, alpha, r1):
         rt, pass_no = self.rt, self.pass_no
         b = self._batch(rng)
         x_in = g_input(b, pass_no)
@@ -384,11 +399,12 @@ class TrainStep:
             real_in = D.condition_ds_input(x_in, b["hr"], *self.cond_f)
             fake_in = D.condition_ds_input(x_in, fake, *self.cond_f)
         loss_ds = self._d_update(rt.ds, rt.opt_ds, self.ds_params, real_in,
-                                 fake_in, alpha, rng, "Ds")
+                                 fake_in, alpha, rng, r1, "Ds")
         loss_dt = 0.0
         if self.temporal:
             loss_dt = self._d_update(rt.dt, rt.opt_dt, self.dt_params,
-                                     trip_real, trip_fake, alpha, rng, "Dt")
+                                     trip_real, trip_fake, alpha, rng, r1,
+                                     "Dt")
         return loss_ds, loss_dt
 
     def _g_run(self, rng, alpha):
@@ -434,12 +450,47 @@ class TrainStep:
 
     # ---------------------------------------------------------------- step
 
+    def r1_due(self) -> bool:
+        """Whether the step at the runtime's step counter applies lazy R1
+        (StyleGAN2: every r1Interval-th step, JAX ``:249-270``)."""
+        k = max(self.cfg.loss.r1_interval, 1)
+        return self.cfg.loss.r1_gamma > 0 and self.rt.step % k == 0
+
+    def check_launches(self, got: tuple[int, int]) -> None:
+        """Raise unless one step launched (or a graph captured) the warp
+        kernels (forward, backward) ``got`` times as the step expects,
+        where the CUDA kernels run."""
+        want = (self.warps_per_step, self.warp_bwds_per_step)
+        if self.count_launches and got != want:
+            raise RuntimeError(
+                f"warp kernels launched (forward, backward) {got} times in "
+                f"a step, expected {want}")
+
     def __call__(self, alpha: float, rng: torch.Generator) -> dict:
-        rt = self.rt
+        """One eager step: :meth:`run_checked` with lazy R1 as the step
+        counter says, then the counter."""
+        metrics = self.run_checked(alpha, rng, self.r1_due())
+        self.rt.step += 1
+        return metrics
+
+    def run_checked(self, alpha: float | torch.Tensor, rng: torch.Generator,
+                    r1: bool) -> dict:
+        """:meth:`run` run eagerly, then the launch check."""
         n0, nb0 = warp_kernel.launches, warp_kernel.bwd_launches
+        metrics = self.run(alpha, rng, r1)
+        self.check_launches((warp_kernel.launches - n0,
+                             warp_kernel.bwd_launches - nb0))
+        return metrics
+
+    def run(self, alpha: float | torch.Tensor, rng: torch.Generator,
+            r1: bool) -> dict:
+        """The step's device work: ``discRuns`` D-runs (lazy R1 with
+        ``r1``), ``genRuns`` G-runs and the EMA → metrics. ``alpha`` is a
+        float or a 0-d float64 device tensor; the step counter is not
+        read or advanced."""
         loss_ds, loss_dt = 0.0, 0.0
         for _ in range(self.d_runs):
-            loss_ds, loss_dt = self._d_run(rng, alpha)
+            loss_ds, loss_dt = self._d_run(rng, alpha, r1)
         loss_g, aux = 0.0, {}
         for _ in range(self.g_runs):
             loss_g, aux = self._g_run(rng, alpha)
@@ -449,14 +500,6 @@ class TrainStep:
                 torch._foreach_mul_(self.ema, decay)
                 torch._foreach_add_(self.ema, self.g_params,
                                     alpha=1.0 - decay)
-        rt.step += 1
-        if self.count_launches:
-            got = (warp_kernel.launches - n0, warp_kernel.bwd_launches - nb0)
-            want = (self.warps_per_step, self.warp_bwds_per_step)
-            if got != want:
-                raise RuntimeError(
-                    f"warp kernels launched (forward, backward) {got} times "
-                    f"in a step, expected {want}")
         metrics = dict(d_loss=loss_ds, dt_loss=loss_dt, g_loss=loss_g,
                        **aux)
         if self.share is not None:
@@ -499,16 +542,30 @@ class Trainer:
     kernels, zero biases) from a CPU generator seeded with ``randSeed``.
     Inside a process group the trainer is one rank of a data-parallel run
     (module docstring); ``shard_data=False`` keeps residency whole.
+
+    ``graphs``: whether ``fit`` replays CUDA graphs
+    (:mod:`mpgan_torch.train.graphed`). None (the default) replays them on
+    a CUDA card when the run is single-process and ``debugNans`` is off,
+    and steps eagerly otherwise: on the CPU, inside a process group
+    (capturing NCCL collectives is not ported) and with ``debugNans``
+    (which reads every loss on the host). True where graphs cannot run
+    raises ``ValueError``; False steps eagerly everywhere.
     """
 
     def __init__(self, cfg: Config, tc: TileCreator, device=None,
-                 pass_no: int | None = None, shard_data: bool = True):
+                 pass_no: int | None = None, shard_data: bool = True,
+                 graphs: bool | None = None):
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)
         if tc.device != self.device:
             raise ValueError(f"the tile creator's volumes are on {tc.device}, "
                              f"the trainer runs on {self.device}")
+        self.graphs = self._graphs_rule(graphs)
+        # the sampling stream, reseeded every iteration; one generator for
+        # the trainer's life, as the graphs that draw from it hold its state
+        self.rng = torch.Generator(device=self.device)
+        self.programs: graphed.Programs | None = None
         n_ranks = pmesh.world()
         if shard_data and n_ranks > 1 and cfg.train.batch_size % n_ranks:
             print(f"  batchSize {cfg.train.batch_size} does not divide over "
@@ -528,6 +585,34 @@ class Trainer:
         self.rt: StageRuntime | None = None
         self.metrics_log: list[dict] = []
         self.init_rng = torch.Generator().manual_seed(cfg.train.rand_seed)
+
+    def _graphs_rule(self, graphs: bool | None) -> bool:
+        """The ``graphs`` argument → whether ``fit`` replays CUDA graphs
+        (class docstring)."""
+        why_not = None
+        if not graphed.Graph.available(self.device):
+            why_not = f"there are no CUDA graphs on {self.device}"
+        elif pmesh.distributed():
+            why_not = ("the trainer is inside a process group, and capturing "
+                       "its collectives is not ported")
+        elif self.cfg.train.debug_nans:
+            why_not = "debugNans reads every loss and gradient on the host"
+            if graphs is None:
+                print("  debugNans: the trainer steps eagerly, without CUDA "
+                      "graphs")
+        if graphs and why_not:
+            raise ValueError(f"graphs=True: {why_not}")
+        return why_not is None if graphs is None else bool(graphs)
+
+    def _set_runtime(self, rt: StageRuntime) -> None:
+        """Make ``rt`` the current runtime. Its programs are new, as JAX
+        compiles anew for a new stage; the old runtime's graphs and their
+        memory pools are released."""
+        if self.programs is not None:
+            self.programs.release()
+        self.rt = rt
+        self.programs = (graphed.Programs(rt, self.rng) if self.graphs
+                         else None)
 
     # ---------------------------------------------------------------- build
 
@@ -611,7 +696,7 @@ class Trainer:
         if self.rt is None:
             stage = (self.schedule.stage_at(start_it)[0] if self.schedule
                      else self.n_stages)
-            self.rt = self._init_stage(stage, None)
+            self._set_runtime(self._init_stage(stage, None))
         return self.rt
 
     # ----------------------------------------------------------- checkpoint
@@ -670,8 +755,8 @@ class Trainer:
                 f"run trains pass {self.pass_no}: resuming across passes "
                 "would restore mismatched parameters")
         state, _ = ckpt.restore(run_dir, model_no, self.device)
-        rt = self.rt = self._init_stage(
-            int(meta.get("stage", self.n_stages)), None)
+        rt = self._init_stage(int(meta.get("stage", self.n_stages)), None)
+        self._set_runtime(rt)
         rt.gen.load_state_dict(state["gen"])
         rt.ds.load_state_dict(state["ds"])
         _load_opt(rt.opt_g, state["opt_g"])
@@ -698,13 +783,18 @@ class Trainer:
         read, appended to ``metrics_log`` and passed to ``on_log(self,
         metrics)``; every ``saveInterval`` iterations before the end,
         ``on_checkpoint(self, it)`` is called with the iterations done.
-        Returns the last metrics with ``steps_per_sec``."""
+        Returns the last metrics with ``steps_per_sec``.
+
+        With ``graphs`` each step is one program's graph replay (its first
+        use steps eagerly, its second captures the graph); a replay's
+        metrics are the graph's output tensors, which its next replay
+        overwrites."""
         cfg = self.cfg
         iters = iters if iters is not None else cfg.train.training_iters
         log_every = log_every or cfg.train.output_interval
         if log_every <= 0:  # outputInterval 0 = log only at the end
             log_every = max(iters, 1)
-        rng = torch.Generator(device=self.device)
+        rng = self.rng
         cur_stage = self.runtime(start_it).stage
         prof = None
         if cfg.train.profile_dir:
@@ -723,16 +813,19 @@ class Trainer:
             if self.schedule:
                 stage, alpha = self.schedule.stage_at(it)
                 if stage != cur_stage:
-                    self.rt = self._init_stage(stage, self.rt)
+                    self._set_runtime(self._init_stage(stage, self.rt))
                     cur_stage = stage
             else:
                 stage, alpha = self.n_stages, 1.0
             fade = alpha < 1.0 and stage > 1
-            fn = self.rt.step_fade if fade else self.rt.step_stable
             rng.manual_seed(_step_seed(cfg.train.rand_seed, it,
                                        pmesh.rank() if self.data_sharded
                                        else None))
-            metrics = fn(alpha, rng)
+            if self.programs is not None:
+                metrics = self.programs(fade, alpha)
+            else:
+                fn = self.rt.step_fade if fade else self.rt.step_stable
+                metrics = fn(alpha, rng)
             it += 1
             touch_heartbeat()
             if (it - 1) // log_every != it // log_every or it >= iters:
@@ -752,6 +845,8 @@ class Trainer:
             prof.stop()
         if last:
             last["steps_per_sec"] = (it - start_it) / max(last["wall"], 1e-9)
+            # one step per graph replay or eager step, whatever
+            # stepsPerDispatch says (module docstring)
             last["steps_per_dispatch"] = 1
         touch_heartbeat()  # the watchdog's clock restarts for the final save
         return last

@@ -127,6 +127,34 @@ def test_downsample_is_antialiased_resize(fh, fw):
                                atol=RESIZE_ATOL)
 
 
+@pytest.mark.parametrize("fh,fw", [(2, 2), (2, 1)])
+def test_downsample_gradient_is_its_adjoint(fh, fw):
+    """The downsample's own backward (the fixed-order adjoint) against
+    JAX's VJP of the resize and F.interpolate's autograd, and
+    differentiable once more, as R1's double backward needs."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    g = rng.standard_normal((2, 16 // fh, 16 // fw, 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jax.image.resize(a, g.shape, "linear"),
+                     jnp.asarray(x))
+    want, = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    got, = torch.autograd.grad(TD.downsample_nhwc(xt, fh, fw), xt,
+                               torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=RESIZE_ATOL)
+    x64 = torch.from_numpy(x).double().permute(0, 3, 1, 2).requires_grad_()
+    g64 = torch.from_numpy(g).double().permute(0, 3, 1, 2)
+    ref, = torch.autograd.grad(F.interpolate(
+        x64, size=(16 // fh, 16 // fw), mode="bilinear",
+        align_corners=False, antialias=True), x64, g64)
+    got64, = torch.autograd.grad(TD.downsample(x64, fh, fw), x64, g64)
+    torch.testing.assert_close(got64, ref, rtol=0, atol=1e-12)
+    assert torch.autograd.gradgradcheck(
+        lambda a: TD.downsample(a, fh, fw), (x64[:1, :1].detach()
+                                             .requires_grad_(),))
+
+
 @pytest.mark.parametrize("fh,fw", [(2, 2), (4, 4), (4, 1)])
 def test_condition_ds_input_matches_jax(fh, fw):
     rng = np.random.default_rng(3)
