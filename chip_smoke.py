@@ -32,10 +32,26 @@ exit, and no result line:
             with TF32 off equals the port's CPU output (atol 1e-4); bf16
             keeps PSNR ≥ 34.5 dB against the ground truth
 4. bench    the main path at the bench shape: 4x, 64³→256³, bf16, base 32,
-            2 res blocks, 2 stages, bundled weights; voxels/s
-5. serve    InferenceServer on a temporary socket with the CUDA upscaler;
-            3 requests (the bundled frame, a 64³ random frame twice) equal
-            the direct call
+            2 res blocks, 2 stages, bundled weights; voxels/s; then at
+            64³ and at 32³→128³ eager upscale_volume against the graphed
+            upscaler (make_graphed_upscaler, its program captured) in
+            turns (eager, graphed, graphed, eager) of 5 windows of 4
+            frames between CUDA events: median ms per frame, voxels/s,
+            peak allocated bytes, the graph pool's bytes, and each way's
+            profile (mpgan_torch.profiling.infer_profile: busy share, host
+            launches per frame); 64³ and 32³ frames interleaved through
+            one graphed upscaler, bf16 and float32 (TF32 off) under cuDNN's
+            deterministic mode, each returned frame equal to an eager
+            upscale_volume bit for bit, read after all calls
+5. serve    InferenceServer on a temporary socket under cuDNN's
+            deterministic mode, both shapes warmed, 10 requests of 32³ (the
+            bundled frame and four random ones) and 64³ (five random)
+            interleaved, in turns (eager, graphed, graphed, eager) with an
+            eager upscaler and with serve.make_upscaler (graphed on one
+            card): every response equals a direct eager upscale_volume bit
+            for bit; median request ms per shape and way; a request's copy
+            into a static device input from its pageable array and through
+            a pinned staging buffer (host ms, synchronised)
 6. align    the trainer's fake- and real-triplet alignment (G1 in f32 on
             sim_3020 frames 29/30/31, B=16 tiles of 16²) through the
             triplet kernel, equal to the plain version (1e-5); the launch
@@ -160,7 +176,8 @@ exit, and no result line:
             11a's setting for training (ganLoss sce, adamEps 1, TF32 off):
             (a) `out 0` with `coordinator 127.0.0.1:<free port>
             numProcesses 1 processId 0`, 4 steps through NCCL at world
-            size 1, equal to the same run without the flags (1e-4), 3
+            size 1, replaying CUDA graphs (one capture, in the NCCL
+            group), equal to the same run without the flags (1e-4), 3
             forward and 1 backward warp launch per step; (b) two ranks
             sharing the card over gloo (spawned processes), the flagship
             recipe at global B=16, 4 steps: with replicated residency
@@ -183,6 +200,23 @@ exit, and no result line:
             equal to upscale_volume's (bf16 within one unit, 2^-7; f32 on
             2 frames within 1e-4); ms per frame streamed and sequential
             (CUDA events), reported
+13e nccl    this process as the only rank of an NCCL group: the NCCL
+            version; an all-reduce (a sum pre-multiplied by 2, which NCCL
+            runs on one rank) captured as the train step's graphs capture
+            is not run by the capture, its graph holds NCCL's kernel
+            (CUDAGraph.debug_dump) and each of 10 replays runs it, the
+            profiler's record of the replays reported (kernels per
+            replay);
+            7b's recipe (bf16) through an eager and a graphed rank in
+            turns as 7b times them (median ms per step, busy share, host
+            launches per step, NCCL kernels per step and their device µs
+            by name, equal in both ways; the graph pools' bytes), 3
+            forward and 1 backward warp launches per step (counts reset
+            just before, read just after); in 11c's float32 setting (TF32
+            off, cuDNN deterministic; lrgan = adamEps = 1, lrdisc 1e-2) 32
+            steps with R1 at 0 and 16: the graphed rank equals the eager
+            rank bit for bit, and the single-process graphed trainer
+            within 1e-4 (the gap printed)
 
 Then one JSON line listing every kernel (its launches on the path that
 runs it, its times at B=16 64², and under "large" at B=256 256²), the
@@ -603,7 +637,8 @@ def phase_bundled(dev):
 def phase_bench(dev):
     from mpgan_torch.infer import assemble
 
-    t0 = phase("4 main path: 4x 64^3 -> 256^3 bf16, base 32, 2 res blocks")
+    t0 = phase("4 main path: 4x 64^3 -> 256^3 bf16, base 32, 2 res blocks; "
+               "eager against graphed at 64^3 and 32^3")
     _, g1, g2 = load_chain("bfloat16", dev)
     lr = torch.from_numpy(np.random.default_rng(0).random(
         (64, 64, 64, 4), dtype=np.float32)).to(dev)
@@ -625,41 +660,224 @@ def phase_bench(dev):
     res = {"frame_ms": frame_ms, "voxels_per_s": 256 ** 3 / (frame_ms / 1e3),
            "pass1_ms": pass1_ms, "pass2_ms": pass2_ms,
            "peak_mem_bytes": peak}
+    small = torch.from_numpy(np.random.default_rng(1).random(
+        (32, 32, 32, 4), dtype=np.float32)).to(dev)
+    for x in (lr, small):
+        res[f"{x.shape[0]}^3"] = upscale_turns(g1, g2, x, frames=4,
+                                               windows=5)
+    res["graphed_bits"] = graphed_frame_bits(dev)
     print("   main path " + json.dumps(res), flush=True)
-    done(t0)
+    done(t0, **{f"{k}_eager_graphed_ms": "{:.3f}/{:.3f}".format(
+        res[k]["eager"]["frame_ms"], res[k]["graphed"]["frame_ms"])
+        for k in ("64^3", "32^3")})
     return res
 
 
-def phase_serve(dev, bundled_lr):
+def upscale_turns(g1, g2, lr, frames, windows):
+    """The two-pass chain on ``lr`` eagerly (``upscale_volume``) and
+    through the graphed upscaler (``make_graphed_upscaler``), each warmed
+    up (the graphed one's program captured), timed in turns (eager,
+    graphed, graphed, eager) of ``windows`` windows of ``frames`` frames
+    between CUDA events, then profiled for 5 frames each
+    (mpgan_torch.profiling.infer_profile) → per way the median ms per
+    frame and the windows, voxels/s, peak allocated bytes over its turns
+    (the graph's pool held throughout) and its profile; the graph pool's
+    bytes."""
+    from mpgan_torch import profiling
+    from mpgan_torch.infer import assemble
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # the pools of released graphs go
+    pools = _graph_pool_bytes()
+    graphed = assemble.make_graphed_upscaler(g1, g2, 4)
+
+    def eager():
+        with torch.inference_mode():
+            return assemble.upscale_volume(g1, g2, lr, 4)
+    ways = {"eager": eager, "graphed": lambda: graphed(lr)}
+    for fn in ways.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    pool_bytes = _graph_pool_bytes() - pools
+    ms = {k: [] for k in ways}
+    peak = dict.fromkeys(ways, 0)
+    for name in ("eager", "graphed", "graphed", "eager"):
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(windows + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events[0].record()
+        for w in range(windows):
+            for _ in range(frames):
+                ways[name]()
+            events[w + 1].record()
+        torch.cuda.synchronize()
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+        ms[name] += [events[w].elapsed_time(events[w + 1]) / frames
+                     for w in range(windows)]
+    voxels = (4 * lr.shape[0]) ** 3
+    res = {"graph_pool_bytes": pool_bytes}
+    for name, fn in ways.items():
+        med = sorted(ms[name])[len(ms[name]) // 2]
+        res[name] = {"frame_ms": med, "frame_ms_windows": ms[name],
+                     "voxels_per_s": voxels / (med / 1e3),
+                     "peak_mem_bytes": peak[name],
+                     "profile": profiling.infer_profile(fn, 5)}
+    graphed.programs.popitem()[1].release()
+    return res
+
+
+def graphed_frame_bits(dev):
+    """Frames of 64³ and 32³ interleaved (3 each) through one graphed
+    upscaler, bf16 and float32 (TF32 off), under cuDNN's deterministic
+    mode: each returned frame, read after all calls, equals an eager
+    ``upscale_volume`` of its input bit for bit → frames compared per
+    dtype."""
+    from mpgan_torch.infer import assemble
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    res = {}
+    try:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = (True,
+                                                                  False,
+                                                                  False)
+        for dtype in ("bfloat16", "float32"):
+            _, g1, g2 = load_chain(dtype, dev)
+            graphed = assemble.make_graphed_upscaler(g1, g2, 4)
+            frames = [torch.from_numpy(np.random.default_rng(10 + i).random(
+                (n, n, n, 4), dtype=np.float32)).to(dev)
+                for i in range(3) for n in (64, 32)]
+            got = [graphed(f) for f in frames]
+            assert all(p.captured for p in graphed.programs.values())
+            with torch.inference_mode():
+                for f, g in zip(frames, got):
+                    assert torch.equal(g, assemble.upscale_volume(
+                        g1, g2, f, 4)), (dtype, f.shape)
+            res[dtype] = {"frames_equal": len(frames)}
+            for p in graphed.programs.values():
+                p.release()
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = flags
+    return res
+
+
+def _serve_turn(upscale, requests, warm_shapes):
+    """An InferenceServer over ``upscale`` on a temporary socket, each of
+    ``warm_shapes`` warmed, then ``requests`` sent in order by one client
+    → (the responses, each request's seconds on the client's clock)."""
     from mpgan_torch import serve
 
-    t0 = phase("5 serving: InferenceServer + Client, 3 requests")
-    _, g1, g2 = load_chain("bfloat16", dev)
-    upscale = serve.make_upscaler((g1, g2, None), dev, up_res=4)
-    rnd = np.random.default_rng(1).random((64, 64, 64, 4), dtype=np.float32)
     with tempfile.TemporaryDirectory() as d:
         sock = os.path.join(d, "mpgan.sock")
         server = serve.InferenceServer(upscale, sock, expect_channels=4)
-        server.warm((64, 64, 64, 4))
+        for shape in warm_shapes:
+            server.warm(shape)
         th = threading.Thread(target=server.serve_forever, daemon=True)
         th.start()
+        out, secs = [], []
         try:
             with serve.Client(sock, timeout=300) as c:
-                for lr in (bundled_lr, rnd, rnd):
+                for lr in requests:
                     t = time.perf_counter()
-                    hr = c.upscale(lr)
-                    req_s = time.perf_counter() - t
-                    direct = serve._to_host(upscale(lr))
-                    assert hr.shape == direct.shape, (hr.shape, direct.shape)
-                    assert np.array_equal(hr, direct)
-                    print(f"   request {lr.shape} -> {hr.shape} in "
-                          f"{req_s:.3f} s, equal to the direct call",
-                          flush=True)
+                    out.append(c.upscale(lr))
+                    secs.append(time.perf_counter() - t)
                 c.shutdown_server()
         finally:
             th.join(timeout=60)
         assert not th.is_alive(), "server thread did not stop"
-    done(t0)
+    return out, secs
+
+
+def phase_serve(dev, bundled_lr):
+    from mpgan_torch import serve
+    from mpgan_torch.infer import assemble
+
+    t0 = phase("5 serving: InferenceServer + Client, 32^3 and 64^3 requests "
+               "interleaved, the graphed upscaler against the eager one")
+    from mpgan_torch.train import graphed as graphed_mod
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    captures = []
+    graph_init = graphed_mod.Graph.__init__
+
+    def counted(self, fn, generator=None):
+        graph_init(self, fn, generator)
+        captures.append(fn)
+    try:
+        graphed_mod.Graph.__init__ = counted
+        _, g1, g2 = load_chain("bfloat16", dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()    # the pools of released graphs go
+        pools = _graph_pool_bytes()
+        graphed = serve.make_upscaler((g1, g2, None), dev, up_res=4)
+
+        def eager(lr):
+            with torch.inference_mode():
+                return assemble.upscale_volume(
+                    g1, g2, torch.tensor(lr, device=dev), 4)
+        rng = np.random.default_rng(1)
+        small = [bundled_lr] + [rng.random(bundled_lr.shape,
+                                           dtype=np.float32)
+                                for _ in range(4)]
+        large = [rng.random((64, 64, 64, 4), dtype=np.float32)
+                 for _ in range(5)]
+        requests = [v for pair in zip(small, large) for v in pair]
+        direct = [serve._to_host(eager(lr)) for lr in requests]
+        warm = [(32, 32, 32, 4), (64, 64, 64, 4)]
+        secs = {"eager": [], "graphed": []}
+        for name in ("eager", "graphed", "graphed", "eager"):
+            out, s = _serve_turn(graphed if name == "graphed" else eager,
+                                 requests, warm)
+            for hr, want in zip(out, direct):
+                assert hr.shape == want.shape and np.array_equal(hr, want)
+            secs[name] += s
+        torch.cuda.synchronize()
+        pool_bytes = _graph_pool_bytes() - pools
+        # the graphed upscaler captured both shapes while warming up, and
+        # only then
+        assert len(captures) == 2, len(captures)
+        res = {"requests_per_turn": len(requests), "graph_pool_bytes":
+               pool_bytes, "staging": _staging_ms(large[0], dev)}
+        for name, s in secs.items():
+            for shape, lat in (("32^3", s[0::2]), ("64^3", s[1::2])):
+                res[f"{name}_{shape}_request_ms"] = sorted(lat)[
+                    len(lat) // 2] * 1e3
+                res[f"{name}_{shape}_request_ms_all"] = [v * 1e3 for v in lat]
+    finally:
+        graphed_mod.Graph.__init__ = graph_init
+        cudnn.deterministic, cudnn.benchmark = flags
+    print("   serve " + json.dumps(res), flush=True)
+    done(t0, **{k: f"{v:.2f}" for k, v in res.items()
+                if k.endswith("request_ms")})
+    return res
+
+
+def _staging_ms(lr, dev):
+    """A request's copy into a static device input, host ms per copy
+    (synchronised): straight from its pageable array, and through a
+    pinned staging buffer (a host copy, then an asynchronous one)."""
+    static = torch.empty(lr.shape, device=dev)
+    pinned = torch.empty(lr.shape, pin_memory=True)
+    src = torch.from_numpy(lr)
+
+    def pageable():
+        static.copy_(src)
+        torch.cuda.synchronize()
+
+    def staged():
+        pinned.copy_(src)
+        static.copy_(pinned, non_blocking=True)
+        torch.cuda.synchronize()
+    res = {"bytes": lr.nbytes}
+    for name, fn in (("pageable", pageable), ("pinned_staging", staged),
+                     ("pinned_staging", staged), ("pageable", pageable)):
+        res.setdefault(f"{name}_ms", []).append(host_us(fn, iters=50) / 1e3)
+    assert torch.equal(static.cpu(), src)
+    return res
 
 
 def phase_align(dev, wk):
@@ -910,7 +1128,9 @@ def train_turns(cfg, make, n, windows):
                 "wall_ms_per_step", "kernel_ms_per_step",
                 "device_busy_share", "host_launches_per_step",
                 "host_launches_by_call", "device_activities_per_step",
-                "warp_kernels_per_step", "warp_kernel_device_ms_by_name")}}
+                "warp_kernels_per_step", "warp_kernel_device_ms_by_name",
+                "nccl_kernels_per_step",
+                "nccl_kernel_device_us_per_step_by_name")}}
     res["steps"] = sum(its[g] - start[g] for g in its)
     return res
 
@@ -1802,8 +2022,9 @@ def phase_parallel(dev, wk):
     from mpgan_torch import cli
     from mpgan_torch.data.pipeline import TileCreator
     from mpgan_torch.dryrun import dryrun_multichip
+    from mpgan_torch.parallel import mesh as pmesh
     from mpgan_torch.train import checkpoint as ckpt
-    from mpgan_torch.train import loop, recipe
+    from mpgan_torch.train import graphed, loop, recipe
 
     t0 = phase("13 parallel: NCCL world 1, two ranks on the card, "
                "dryrun_multichip(2), sliced and pipelined inference")
@@ -1819,16 +2040,27 @@ def phase_parallel(dev, wk):
                + " dtype float32 adamEps 1 trainingIters 4 saveInterval 0 "
                "outputInterval 4 ")
         t = time.perf_counter()
-        wk.launches = wk.bwd_launches = 0                      # path starts
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
-        cli.main((f32 + f"testPath {d}/nccl/ coordinator 127.0.0.1:{port} "
-                  "numProcesses 1 processId 0").split())
-        torch.cuda.synchronize()
-        launches = (wk.launches, wk.bwd_launches)              # path ends
+        captures = []
+        graph_init = graphed.Graph.__init__
+
+        def counted(self, fn, generator=None):
+            graph_init(self, fn, generator)
+            captures.append(pmesh.backend())
+        graphed.Graph.__init__ = counted
+        try:
+            wk.launches = wk.bwd_launches = 0                  # path starts
+            cli.main((f32 + f"testPath {d}/nccl/ coordinator "
+                      f"127.0.0.1:{free_port()} numProcesses 1 "
+                      "processId 0").split())
+            torch.cuda.synchronize()
+            launches = (wk.launches, wk.bwd_launches)          # path ends
+        finally:
+            graphed.Graph.__init__ = graph_init
         res["a_s"] = time.perf_counter() - t
         assert launches == (3 * 4, 4), launches
+        # the rank replayed graphs (R1 at step 0, eager; the program
+        # without R1 eager at step 1, captured at step 2)
+        assert captures == ["nccl"], captures
         cli.main((f32 + f"testPath {d}/plain/").split())
         got, want = (ckpt.restore(ckpt.run_dir(f"{d}/{n}", 0), 0, "cpu")
                      for n in ("nccl", "plain"))
@@ -1836,6 +2068,7 @@ def phase_parallel(dev, wk):
         gap = _state_gap(_state_tensors(got[0]), _state_tensors(want[0]))
         assert gap <= 1e-4, gap
         res["a"] = {"nccl_world1_vs_no_flags_max_abs_gap": gap,
+                    "graphs_captured": len(captures),
                     "warp_launches": launches[0],
                     "warp_bwd_launches": launches[1]}
 
@@ -1917,6 +2150,159 @@ def phase_parallel(dev, wk):
     res["d"] = _parallel_inference(dev)
     print("   parallel " + json.dumps(res), flush=True)
     done(t0)
+    return res
+
+
+def free_port():
+    """A free TCP port on the loopback interface."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _captured_collective_probe(dev, replays=10):
+    """An all-reduce captured as the train step's graphs capture
+    (``thread_local``) on the group's communicator, with an op that NCCL
+    runs even on one rank (a sum pre-multiplied by 2; a one-rank in-place
+    sum is no work for it): eagerly it doubles the tensor; after the
+    capture the tensor is unchanged (recorded, not run) and the graph's
+    nodes (``CUDAGraph.debug_dump``) hold NCCL's kernel; each of
+    ``replays`` profiled replays doubles the tensor again → the graph's
+    NCCL kernel node, and the kernels the profiler recorded in the window
+    (between two 10 ms device spins) by name, count and device µs per
+    replay, and whether that trace is whole (both spins and one NCCL
+    kernel per replay): short windows late in a long process have come
+    back cut, so the trace is reported, not held."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpgan_torch.profiling import NCCL_KERNELS
+
+    x = torch.ones(1 << 20, device=dev)
+    op = dist._make_nccl_premul_sum(2.0)
+    dist.all_reduce(x, op=op)
+    torch.cuda.synchronize()
+    assert bool(x.eq(2).all()), x[:4]
+    x.fill_(1.0)
+    # the captured graph kept (keep_graph) for its dump, then instantiated
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    g.enable_debug_mode()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        dist.all_reduce(x, op=op)
+    torch.cuda.synchronize()
+    assert bool(x.eq(1).all()), x[:4]
+    with tempfile.TemporaryDirectory() as d:
+        g.debug_dump(os.path.join(d, "probe.dot"))
+        with open(os.path.join(d, "probe.dot")) as f:
+            nodes = NCCL_KERNELS.findall(f.read())
+    assert nodes, "no NCCL kernel node in the captured graph"
+    g.instantiate()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(replays):
+            g.replay()
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+    assert bool(x.eq(2.0 ** replays).all()), x[:4]
+    g.reset()
+    kernels = {e.key: [e.count / replays, e.self_device_time_total / replays]
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    nccl = sum(c for k, (c, _) in kernels.items() if NCCL_KERNELS.search(k))
+    spins = sum(c for k, (c, _) in kernels.items() if "spin_kernel" in k)
+    return {"replays": replays, "graph_nccl_nodes": sorted(set(nodes)),
+            "replay_kernels_count_us": kernels,
+            "trace_whole": (nccl, spins * replays) == (1.0, 2.0)}
+
+
+def phase_nccl_rank(dev, wk):
+    """13e: the flagship pass-1 step as the only rank of an NCCL group,
+    graphed against eager; float32 bit for bit."""
+    from mpgan_torch import config as cfgmod
+    from mpgan_torch.data.loader import FluidDataLoader
+    from mpgan_torch.data.pipeline import TileCreator
+    from mpgan_torch.parallel import mesh as pmesh
+    from mpgan_torch.train import loop, recipe
+
+    t0 = phase("13e NCCL group of one: the flagship pass-1 step graphed "
+               "against eager, float32 bit for bit")
+    res = {"nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+           "NCCL_GRAPH_MIXING_SUPPORT": os.environ.get(
+               "NCCL_GRAPH_MIXING_SUPPORT", "unset")}
+    tc = TileCreator(recipe.synthetic_dataset(), 16, density_threshold=0.0,
+                     device=dev)
+    cfg = recipe.flagship_config("bfloat16")
+    # 11c's float32 setting, on its smooth one-sim dataset
+    tmp = tempfile.TemporaryDirectory()
+    smooth_dataset(os.path.join(tmp.name, "data"), n_sims=1)
+    f32 = cfgmod.from_cli((
+        f"basePath {tmp.name}/data/ fromSim 1000 toSim 1000 frameMax 4 "
+        "out 0 " + CLI_RECIPE.replace("lrdisc 0.0004", "lrdisc 0.01")
+        + " dtype float32 lrgan 1 adamEps 1").split())
+    tc32 = TileCreator(FluidDataLoader(f"{tmp.name}/data/", 1000, 1000, 0,
+                                       4).get(), 16, 0.0, device=dev)
+    tmp.cleanup()
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "nccl")
+    try:
+        assert loop.Trainer(cfg, tc, device=dev).graphs is True
+        res["probe"] = _captured_collective_probe(dev)
+        wk.launches = wk.bwd_launches = 0                  # path starts
+        turns = train_turns(cfg, lambda graphs: loop.Trainer(
+            cfg, tc, device=dev, graphs=graphs), n=32, windows=3)
+        launches = (wk.launches, wk.bwd_launches)          # path ends
+        steps = turns.pop("steps")
+        turns.pop("trainers")
+        assert launches == (3 * steps, steps), launches
+        nccl = {w: turns[w]["profile"]["nccl_kernels_per_step"]
+                for w in ("eager", "graphed")}
+        assert nccl["graphed"] == nccl["eager"], nccl
+        res.update(turns, steps=steps, warp_launches=launches[0],
+                   warp_bwd_launches=launches[1])
+
+        # 11c's float32 setting: 32 steps, R1 at steps 0 and 16
+        cudnn.deterministic, cudnn.benchmark = True, False
+        cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        runs = {}
+        for graphs in (False, True):
+            tr = loop.Trainer(f32, tc32, device=dev,
+                              graphs=None if graphs else False)
+            assert tr.graphs is graphs
+            runs[graphs] = (tr.fit(32, log_every=32), tr)
+        torch.cuda.synchronize()
+    finally:
+        pmesh.shutdown()
+    try:
+        tr = loop.Trainer(f32, tc32, device=dev)
+        assert tr.graphs is True
+        runs["single"] = (tr.fit(32, log_every=32), tr)
+        torch.cuda.synchronize()
+    finally:
+        (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    states = {k: _state_tensors(tr.state()) for k, (_, tr) in runs.items()}
+    assert all(bool(torch.isfinite(t.float()).all())
+               for st in states.values() for t in st.values())
+    rank_gap = _state_gap(states[True], states[False])
+    single_gap = _state_gap(states[True], states["single"])
+    metrics_equal = all(runs[True][0][k] == runs[False][0][k]
+                        for k in TRAIN_METRICS)
+    assert rank_gap == 0.0 and metrics_equal, (rank_gap, metrics_equal)
+    assert single_gap <= 1e-4, single_gap
+    res["f32"] = {
+        "steps": 32, "graphed_vs_eager_rank_max_abs_gap": rank_gap,
+        "metrics_equal": metrics_equal,
+        "graphed_rank_vs_single_process_graphed_max_abs_gap": single_gap,
+        "programs_uses_captured": {
+            f"fade={k[0]},r1={k[1]}": [p.uses, p.graph is not None]
+            for k, p in runs[True][1].programs.programs.items()}}
+    print("   nccl_rank " + json.dumps(res), flush=True)
+    done(t0, graphed_ms=res["graphed"]["ms_per_step"],
+         eager_ms=res["eager"]["ms_per_step"], f32_rank_gap=rank_gap,
+         f32_single_gap=single_gap)
     return res
 
 
@@ -2007,7 +2393,7 @@ def main():
     single_launches, single_err = phase_single_path(dev, wk)
     bundled_lr, bundled_quality = phase_bundled(dev)
     bench = phase_bench(dev)
-    phase_serve(dev, bundled_lr)
+    served = phase_serve(dev, bundled_lr)
     align_launches, align_err = phase_align(dev, wk)
     train = phase_train(dev, wk)
     cli_res = phase_cli(dev, wk)
@@ -2017,6 +2403,7 @@ def main():
     repro = phase_repro(dev, wk)
     datagen = phase_datagen(dev, wk, nvidia_smi())
     parallel = phase_parallel(dev, wk)
+    parallel["e"] = phase_nccl_rank(dev, wk)
 
     # launches: each kernel's count on the path that runs it, the train
     # step (7b) for the triplet kernels, advect_2d_fast (2b) for the
@@ -2048,6 +2435,8 @@ def main():
                       launches_recovery=recover["warp_launches"],
                       launches_datagen=datagen["c_train"]["warp_launches"],
                       launches_nccl_world1=parallel["a"]["warp_launches"],
+                      launches_nccl_rank_turns=parallel["e"][
+                          "warp_launches"],
                       launches_two_ranks_per_rank=parallel["b"][
                           "warp_launches_per_rank"])
     kernels[3].update(
@@ -2057,9 +2446,11 @@ def main():
         launches_recovery=recover["warp_bwd_launches"],
         launches_datagen=datagen["c_train"]["warp_bwd_launches"],
         launches_nccl_world1=parallel["a"]["warp_bwd_launches"],
+        launches_nccl_rank_turns=parallel["e"]["warp_bwd_launches"],
         launches_two_ranks_per_rank=parallel["b"][
             "warp_bwd_launches_per_rank"])
     print(json.dumps({"kernels": kernels, "main_path": bench,
+                      "serve": served,
                       "bundled": bundled_quality, "train": train,
                       "cli": cli_res, "quality": quality,
                       "streamed": streamed, "recover": recover,

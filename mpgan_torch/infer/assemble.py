@@ -1,6 +1,6 @@
 """Full-volume multi-pass inference + slice reassembly.
 
-Counterpart of ``mpgan_tpu/infer/assemble.py`` :29-142 and :245-283:
+Counterpart of ``mpgan_tpu/infer/assemble.py`` :29-142 and :219-283:
 LR volume (Z, Y, X, C) →
   pass 1: all z-slices (xy planes) through G1 → intermediate
           (Z, Y·s, X·s, 1);
@@ -21,12 +21,19 @@ list (:func:`mpgan_torch.parallel.mesh.make_mesh`) each call's slices are
 split over the devices, each device runs its own replica of the generator
 (:func:`replica`), and the results are gathered on the first device in
 slice order. Per-slice 2D convolutions need no halo exchange.
+
+On one card a whole upscale is one device program, as JAX jits it
+(:func:`make_graphed_upscaler`, the counterpart of ``make_jitted_upscaler``):
+a CUDA graph per input shape, replayed per call (:class:`GraphedProgram`),
+and each sweep replays one program over all its volumes.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -34,6 +41,13 @@ import torch.nn.functional as F
 
 from mpgan_torch.ops.upsample import resize_volume
 from mpgan_torch.parallel.mesh import canonical
+from mpgan_torch.train import graphed
+
+# captured programs a graphed upscaler keeps, one per input shape and dtype
+# (make_graphed_upscaler): each holds a memory pool somewhat above the
+# eager call's peak (2.33 GB against 1.72 GB at 64³→256³ bf16 on an H100,
+# chip_smoke.py phase 4)
+MAX_PROGRAMS = 2
 
 # generator → {device: (parameter versions, replica on that device)}
 _REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -119,8 +133,11 @@ def _with_velocity(vol: torch.Tensor, lr_vel: torch.Tensor | None,
     to its grid (values stay in LR units) and permuted for the slice plane."""
     if lr_vel is None:
         return vol.to(dtype)
-    vel = resize_volume(lr_vel.to(dtype), tuple(vol.shape[:3]))[..., perm]
-    return torch.cat([vol.to(dtype), vel], dim=-1)
+    vel = resize_volume(lr_vel.to(dtype), tuple(vol.shape[:3]))
+    # channel slices, not vel[..., perm]: a list index is a host tensor,
+    # whose copy to the card a CUDA graph cannot capture
+    return torch.cat([vol.to(dtype)] + [vel[..., i:i + 1] for i in perm],
+                     dim=-1)
 
 
 def pass2_volume(gen2, interm: torch.Tensor, lr_vel: torch.Tensor | None,
@@ -258,22 +275,161 @@ def upscale_volume_streamed(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
     return final
 
 
-def _sweep(one, lr_vols: torch.Tensor) -> torch.Tensor:
-    """``one`` over each volume of ``lr_vols`` under inference mode, each
+def graphable(device, devices=None) -> bool:
+    """Whether calls on ``device`` (split over ``devices``) can run as one
+    captured program: CUDA graphs exist there, and the device list names
+    one card (a list that repeats it included: one capture holds every
+    share). A capture lives on one device, and a split over distinct
+    cards copies between them."""
+    return graphed.Graph.available(device) and (
+        devices is None or len({canonical(d) for d in devices}) == 1)
+
+
+class GraphedProgram:
+    """``fn(x)`` for inputs of one shape and dtype as one captured CUDA
+    graph (:class:`mpgan_torch.train.graphed.Graph`), by the rule of the
+    train step's :class:`~mpgan_torch.train.graphed.Program`: the first
+    use runs ``fn`` eagerly (the warm-up: cuDNN's algorithm choice, the
+    upsample weights, replicas), the second copies ``x`` into the
+    program's static input on ``device`` and captures, every later use
+    copies in and replays. From the second use on, ``program(x)`` returns
+    the graph's static output, which the next replay overwrites: a caller
+    that keeps it copies it first (:func:`make_graphed_upscaler`).
+
+    ``x`` may lie on the host. A replay raises ``RuntimeError`` when a
+    parameter or buffer of ``modules`` no longer lies where it lay at the
+    capture (a module moved or its tensors replaced: the graph would read
+    the old storage); values changed in place are read by the replay."""
+
+    def __init__(self, fn, modules, device):
+        self.fn = fn
+        self.modules = [m for m in modules if m is not None]
+        self.device = canonical(device)
+        self.uses = 0
+        self.graph: graphed.Graph | None = None
+        self.x: torch.Tensor | None = None
+        self.storage: list[int] = []
+
+    def _storage(self) -> list[int]:
+        return [t.data_ptr() for m in self.modules
+                for t in itertools.chain(m.parameters(), m.buffers())]
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.uses += 1
+        if self.uses == 1:
+            return self.fn(x.to(self.device))
+        if self.graph is None:
+            self.x = torch.empty(x.shape, dtype=x.dtype, device=self.device)
+            self.x.copy_(x)
+            self.storage = self._storage()
+            self.graph = graphed.Graph(lambda: self.fn(self.x))
+        elif self._storage() != self.storage:
+            raise RuntimeError(
+                "a generator's parameters were moved or replaced since its "
+                "CUDA graph was captured; make a new upscaler")
+        else:
+            self.x.copy_(x)
+        return self.graph.replay()
+
+    def release(self) -> None:
+        """Release the graph, its memory pool and the static input."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.x = None
+
+
+class GraphedUpscaler:
+    """``lr (Z, Y, X, C) → HR (Z·s, Y·s, X·s, 1)`` over a pass chain, one
+    :class:`GraphedProgram` per ``(input shape, dtype)``
+    (:func:`make_graphed_upscaler`)."""
+
+    def __init__(self, gen1, gen2, up_res: int, stage: int | None = None,
+                 chunk: int = 0, gen3=None, devices=None):
+        self.device = canonical(next(gen1.parameters()).device)
+        if not graphable(self.device, devices):
+            raise ValueError(
+                f"a graphed upscaler runs on one CUDA card; got {self.device}"
+                f" split over {devices}")
+        self.modules = (gen1, gen2, gen3)
+
+        def fn(lr_vol):
+            return upscale_volume(gen1, gen2, lr_vol, up_res, stage=stage,
+                                  chunk=chunk, gen3=gen3, devices=devices)
+        self.fn = fn
+        # least recently used first
+        self.programs: OrderedDict[tuple, GraphedProgram] = OrderedDict()
+
+    def __call__(self, lr_vol) -> torch.Tensor:
+        lr_vol = torch.as_tensor(lr_vol)
+        key = (tuple(lr_vol.shape), lr_vol.dtype)
+        program = self.programs.pop(key, None)
+        if program is None:
+            program = GraphedProgram(self.fn, self.modules, self.device)
+        self.programs[key] = program
+        if len(self.programs) > MAX_PROGRAMS:
+            self.programs.popitem(last=False)[1].release()
+        with torch.inference_mode():
+            out = program(lr_vol)
+            # a replay returns the graph's own output, which the program's
+            # next replay overwrites (a server fetches a result outside its
+            # device lock, while the next request may replay): hand out a
+            # copy on the device, as JAX hands out a fresh buffer per call
+            return out.clone() if program.captured else out
+
+
+def make_graphed_upscaler(gen1, gen2, up_res: int, stage: int | None = None,
+                          chunk: int = 0, gen3=None,
+                          devices=None) -> GraphedUpscaler:
+    """:func:`upscale_volume` over the chain as one device program per
+    input shape: the counterpart of ``make_jitted_upscaler``
+    (``mpgan_tpu/infer/assemble.py:219-246``), whose ``jax.jit`` compiles
+    one program per shape and dtype.
+
+    → ``upscale(lr)``: ``lr`` (Z, Y, X, C), a tensor on the host or the
+    generators' card (or an array), → a fresh (Z·s, Y·s, X·s, 1) tensor on
+    the card, under inference mode. Per ``(shape, dtype)`` a
+    :class:`GraphedProgram`: eager at its first use, captured at its
+    second, replayed after; each replay's output is copied out on the
+    device (one 32 MB copy at 256³ bf16), so no returned tensor is ever
+    overwritten by a later call. The cache keeps the ``MAX_PROGRAMS`` (2)
+    most recently used shapes; using a third releases the least recently
+    used one's graph and memory pool (2.33 GB each at 64³→256³ bf16 on
+    an H100), and that shape starts again from an eager use. ``devices`` may repeat the generators' card (one capture holds
+    both shares); distinct cards raise ``ValueError``, since a capture
+    lives on one device: there :func:`upscale_volume` runs eagerly."""
+    return GraphedUpscaler(gen1, gen2, up_res, stage=stage, chunk=chunk,
+                           gen3=gen3, devices=devices)
+
+
+def _sweep(fn, lr_vols: torch.Tensor, modules, devices) -> torch.Tensor:
+    """``fn`` over each volume of ``lr_vols`` under inference mode, each
     result cast to float32 into one output tensor allocated once (as the
     JAX package's single-allocation ``lax.map``: a list and a stack would
-    hold the sweep twice)."""
+    hold the sweep twice). Where it can (:func:`graphable`), ``fn`` is one
+    :class:`GraphedProgram` replayed over every volume, since they share
+    one shape (JAX's one ``jit(lax.map)``), released at the end."""
+    program = (GraphedProgram(fn, modules, lr_vols.device)
+               if graphable(lr_vols.device, devices) else None)
+    one = program or fn
     n = lr_vols.shape[0]
-    with torch.inference_mode():
-        first = one(lr_vols[0])
-    # allocated outside inference mode: the sweep feeds training, where an
-    # inference tensor could not take part in autograd
-    out = torch.empty((n, *first.shape), dtype=torch.float32,
-                      device=first.device)
-    with torch.inference_mode():
-        out[0] = first
-        for i in range(1, n):
-            out[i] = one(lr_vols[i])
+    try:
+        with torch.inference_mode():
+            first = one(lr_vols[0])
+        # allocated outside inference mode: the sweep feeds training, where
+        # an inference tensor could not take part in autograd
+        out = torch.empty((n, *first.shape), dtype=torch.float32,
+                          device=first.device)
+        with torch.inference_mode():
+            out[0] = first
+            for i in range(1, n):
+                out[i] = one(lr_vols[i])
+    finally:
+        if program is not None:
+            program.release()
     return out
 
 
@@ -284,7 +440,8 @@ def precompute_intermediates(gen1, lr_vols: torch.Tensor,
     (N, Z, Y·s, X·s, 1) float32 intermediate volumes, the pass-2 training
     inputs when G2 trains on G1 outputs (JAX ``:245-261``)."""
     return _sweep(lambda v: pass1_volume(gen1, v, stage=stage, chunk=chunk,
-                                         devices=devices), lr_vols)
+                                         devices=devices), lr_vols, (gen1,),
+                  devices)
 
 
 def precompute_finals(gen1, gen2, lr_vols: torch.Tensor, up_res: int,
@@ -294,7 +451,7 @@ def precompute_finals(gen1, gen2, lr_vols: torch.Tensor, up_res: int,
     ``:264-275``)."""
     return _sweep(lambda v: upscale_volume(gen1, gen2, v, up_res,
                                            chunk=chunk, devices=devices),
-                  lr_vols)
+                  lr_vols, (gen1, gen2), devices)
 
 
 def psnr_volume(fake, real, peak: float = 1.0) -> float:

@@ -176,7 +176,8 @@ def load_pass_chain(cfg, load_test2: int = -1, load_no2: int = -1,
 
 def make_default_upscaler(cfg, chain, device=None):
     """The volume upscaler over a loaded pass chain (JAX ``:133-144``):
-    :func:`mpgan_torch.serve.make_upscaler`, over every visible card."""
+    :func:`mpgan_torch.serve.make_upscaler`, a captured program per input
+    shape on one card, eager over several cards and on the CPU."""
     from mpgan_torch import serve
 
     return serve.make_upscaler(chain, device, cfg.data.up_res,

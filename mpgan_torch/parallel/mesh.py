@@ -70,6 +70,12 @@ def distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def backend() -> str | None:
+    """The process group's backend (``"nccl"``, ``"gloo"``); None outside
+    one."""
+    return dist.get_backend() if distributed() else None
+
+
 def world() -> int:
     return dist.get_world_size() if distributed() else 1
 
@@ -203,7 +209,7 @@ def broadcast_int(value: int) -> int:
     if not distributed():
         return int(value)
     dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend() == "nccl" else torch.device("cpu"))
+           if backend() == "nccl" else torch.device("cpu"))
     t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
     dist.broadcast(t, src=0)
     return int(t.item())

@@ -7,7 +7,9 @@ Profiles (torch.profiler, CPU + CUDA activities) after warm-up:
   5 frames; the top 15 kernels by device time and the top 15 aten ops by
   inclusive device time (nested ops each list their children's time),
   and the device busy share (summed kernel time over the window's wall
-  time);
+  time); then the same frames and 32³→128³ ones eagerly and through the
+  graphed upscaler (:func:`infer_profile`: busy share and host launches
+  per frame);
 - each warp kernel alone (single-field forward and backward, triplet
   forward and backward) at the trainer's shape (B=16, 64²) and at B=256,
   256², 100 calls each: device time per call against the host-side time
@@ -26,7 +28,8 @@ Profiles (torch.profiler, CPU + CUDA activities) after warm-up:
   also the warp path's device launches and device time, forward and
   backward apart, from ``record_function`` ranges around the same
   wrapped calls, the backward kernel's, which the trace leaves out of
-  its range, by name and by its launch counter). The profiler adds host
+  its range, by name and by its launch counter; and NCCL's kernels by
+  name, which a rank of a process group runs). The profiler adds host
   cost to every op, so its busy share is a lower bound for the
   unprofiled run.
 
@@ -64,6 +67,9 @@ WARP_TRACE_NAMES = (("warp2d_triplet_kernel", "warp2d_triplet"),
                     ("warp2d_bwd_kernel<2", "warp2d_triplet_bwd"),
                     ("warp2d_bwd_kernel<1", "warp2d_bwd"),
                     ("warp2d_kernel", "warp2d"))
+# NCCL's kernels as the trace names them (a one-rank reduction is
+# oneRankReduce)
+NCCL_KERNELS = re.compile(r"nccl|onerankreduce", re.IGNORECASE)
 # steps before a flagship window: every program has run and been captured
 # (lazy R1 every 16 steps: the program with R1 is captured at step 16)
 TRAIN_WARMUP = 17
@@ -168,13 +174,45 @@ def warp_name(trace_name: str) -> str | None:
     return None
 
 
+def _launches(avgs, n: int) -> dict[str, float]:
+    """Host launch calls per unit (step or frame), by name."""
+    return {e.key: e.count / n for e in avgs
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and LAUNCH_CALLS.fullmatch(e.key)}
+
+
+def infer_profile(frame, n: int) -> dict:
+    """Profile ``n`` calls of ``frame()``, one upscaled frame each (after
+    its warm-up; a graphed upscaler's program captured) → wall and kernel
+    ms per frame, the device busy share, host launches per frame (by call
+    and their sum) and device activities per frame."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            frame()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    kernels, _, kern_us = _tables(avgs)
+    launches = _launches(avgs, n)
+    return {"frames": n, "wall_ms_per_frame": wall_us / n / 1e3,
+            "kernel_ms_per_frame": kern_us / n / 1e3,
+            "device_busy_share": kern_us / wall_us,
+            "host_launches_per_frame": sum(launches.values()),
+            "host_launches_by_call": launches,
+            "device_activities_per_frame": sum(r[2] for r in kernels) / n}
+
+
 def train_profile(tr, it: int, n: int):
     """Profile ``n`` steps of the trainer ``tr`` from iteration ``it``
     (after its warm-up) → (summary, the profiler's events). The summary:
     wall and kernel ms per step, the device busy share, host launches per
     step (the calls that put work on a stream, by name, and their sum),
     device activities per step, the warp kernels per step and their
-    device ms by name, and the top kernels and aten ops."""
+    device ms by name, NCCL's kernels per step and their device µs by
+    name, and the top kernels and aten ops."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -184,9 +222,7 @@ def train_profile(tr, it: int, n: int):
         wall_us = (time.perf_counter() - t0) * 1e6
     avgs = prof.key_averages()
     kernels, ops, kern_us = _tables(avgs)
-    launches = {e.key: e.count / n for e in avgs
-                if e.device_type == torch.autograd.DeviceType.CPU
-                and LAUNCH_CALLS.fullmatch(e.key)}
+    launches = _launches(avgs, n)
     warp: dict[str, float] = {}
     warp_ms: dict[str, float] = {}
     for name, us, count in kernels:
@@ -194,6 +230,10 @@ def train_profile(tr, it: int, n: int):
             k = warp_name(name)
             warp[k] = warp.get(k, 0) + count / n
             warp_ms[k] = warp_ms.get(k, 0) + us / n / 1e3
+    nccl = {name: count / n for name, _, count in kernels
+            if NCCL_KERNELS.search(name)}
+    nccl_us = {name: us / n for name, us, _ in kernels
+               if NCCL_KERNELS.search(name)}
     return {
         "steps": n, "wall_ms_per_step": wall_us / n / 1e3,
         "kernel_ms_per_step": kern_us / n / 1e3,
@@ -204,6 +244,8 @@ def train_profile(tr, it: int, n: int):
         "warp_kernels_per_step": warp,
         "warp_kernel_device_ms_per_step": sum(warp_ms.values()),
         "warp_kernel_device_ms_by_name": warp_ms,
+        "nccl_kernels_per_step": nccl,
+        "nccl_kernel_device_us_per_step_by_name": nccl_us,
         "top_kernels": _table(kernels, n, "step"),
         "top_aten_ops": _table(ops, n, "step")}, prof.events()
 
@@ -267,6 +309,26 @@ def train_breakdown(dev, pass_no: int = 1, graphs: bool = False) -> dict:
         "profiled": prof}
 
 
+def infer_turns(g1, g2, dev, n: int) -> dict:
+    """The two-pass chain at 64³→256³ and 32³→128³ eagerly and through the
+    graphed upscaler (three warm-up calls each: the program is captured),
+    each profiled over ``n`` frames (:func:`infer_profile`)."""
+    out = {}
+    for size in (64, 32):
+        lr = torch.from_numpy(np.random.default_rng(size).random(
+            (size, size, size, 4), dtype=np.float32)).to(dev)
+        graphed = assemble.make_graphed_upscaler(g1, g2, 4)
+
+        def eager():
+            with torch.inference_mode():
+                return assemble.upscale_volume(g1, g2, lr, 4)
+        for name, fn in (("eager", eager), ("graphed", lambda: graphed(lr))):
+            for _ in range(3):
+                fn()
+            out[f"{size}^3_{name}"] = infer_profile(fn, n)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("mpgan_torch.profiling: needs a CUDA card", file=sys.stderr)
@@ -289,6 +351,7 @@ def main():
         "kernel_ms_per_frame": kern_us / n / 1e3,
         "device_busy_share": kern_us / wall_us,
         "top_kernels": _table(kernels, n), "top_aten_ops": _table(ops, n)}}
+    result["main_path_eager_vs_graphed"] = infer_turns(g1, g2, dev, n)
 
     result["warp"] = []
     for b, h, w in ((16, 64, 64), (256, 256, 256)):

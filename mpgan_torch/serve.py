@@ -17,8 +17,9 @@ Wire protocol (all integers little-endian u32):
 
 One request per connection round-trip; a connection may issue many
 sequentially. Concurrent connections are accepted; device dispatch is
-serialized (the model is one device program — overlap comes from the
-request threads doing socket I/O while another request computes).
+serialized (on one card the model is one device program per request
+shape, a replayed CUDA graph — overlap comes from the request threads
+doing socket I/O while another request computes).
 
 Serving-specific flags of :func:`main` (the model flags are those of
 :func:`mpgan_torch.config.from_cli`):
@@ -49,14 +50,16 @@ VERSION = 1
 MAX_VOXELS = 1024 ** 3
 
 
-def _recv_exact(conn: socket.socket, n: int) -> bytes:
+def _recv_exact(conn: socket.socket, n: int) -> bytearray:
+    """``n`` bytes from ``conn``, as a writable buffer: a request's payload
+    becomes its array with no copy (``np.frombuffer``)."""
     buf = bytearray()
     while len(buf) < n:
         chunk = conn.recv(min(1 << 20, n - len(buf)))
         if not chunk:
             raise ConnectionError(f"peer closed after {len(buf)}/{n} bytes")
         buf.extend(chunk)
-    return bytes(buf)
+    return buf
 
 
 def _to_host(x) -> np.ndarray:
@@ -118,9 +121,12 @@ class InferenceServer:
         self._sock.settimeout(0.5)  # poll the shutdown flag in accept()
 
     def warm(self, shape: tuple[int, int, int, int]) -> None:
-        """Run the upscaler once for one LR shape up front."""
+        """Run the upscaler twice for one LR shape up front: a graphed
+        upscaler's first use is eager and its second captures, so the
+        first request of that shape replays."""
         lr = np.zeros(shape, np.float32)
-        _to_host(self._upscale(lr))
+        for _ in range(2):
+            _to_host(self._upscale(lr))
 
     def serve_forever(self) -> None:
         threads = []
@@ -223,7 +229,9 @@ class InferenceServer:
         with self._device_lock:  # one device program at a time
             hr_dev = self._upscale(lr)
         # device→host fetch OUTSIDE the lock, so it overlaps the next
-        # request's dispatch
+        # request's dispatch: safe because the upscaler returns a tensor of
+        # this request's own (a graphed upscaler copies its replay's output
+        # out on the device), which the next request's replay cannot touch
         hr = _to_host(hr_dev)
         # two sends, zero copies: hdr + hr.tobytes() would allocate the
         # whole volume twice more (~1 GB transient at 512^3)
@@ -288,10 +296,14 @@ def make_upscaler(chain, device=None, up_res: int = 4, chunk: int = 0):
 
     Runs under ``torch.inference_mode`` in the generators' own dtype (bf16
     or f32 per ``cfg.model.dtype``) and returns the result on the device
-    without waiting for it; the server fetches it outside its lock. On a
-    card every visible card takes a share of each pass's slices (JAX
-    ``mpgan_tpu/infer/load.py:133-144``); ``CUDA_VISIBLE_DEVICES``
-    limits them."""
+    without waiting for it; the server fetches it outside its lock. On one
+    card it is :func:`mpgan_torch.infer.assemble.make_graphed_upscaler`:
+    one captured program per request shape, eager at a shape's first
+    request and replayed from its second on, each result a fresh tensor
+    (JAX ``mpgan_tpu/infer/load.py:133-144`` jits the upscaler). With
+    several cards every visible card takes a share of each pass's slices
+    and the upscaler runs eagerly, as a CUDA graph lives on one card
+    (``CUDA_VISIBLE_DEVICES`` limits them); on the CPU it runs eagerly."""
     from mpgan_torch.device import resolve_device
     from mpgan_torch.infer import assemble
     from mpgan_torch.parallel import mesh as pmesh
@@ -300,6 +312,13 @@ def make_upscaler(chain, device=None, up_res: int = 4, chunk: int = 0):
     gen1, gen2, gen3 = chain
     devices = (pmesh.make_mesh() if dev.type == "cuda"
                and torch.cuda.device_count() > 1 else None)
+    if assemble.graphable(dev, devices):
+        graphed = assemble.make_graphed_upscaler(
+            gen1, gen2, up_res, chunk=chunk, gen3=gen3, devices=devices)
+        return lambda lr: graphed(np.asarray(lr, dtype=np.float32))
+    if devices is not None:
+        print(f"  the upscaler runs eagerly over {len(devices)} cards: a "
+              "CUDA graph lives on one card")
 
     def upscale(lr: np.ndarray) -> torch.Tensor:
         lr_t = torch.tensor(np.asarray(lr, dtype=np.float32), device=dev)

@@ -32,6 +32,24 @@ run only where a wrapper is called; the launches that a capture records
 do not run then, so the counters are put back after a capture, and each
 replay adds the launches its graph holds. A failed capture or replay
 raises; nothing falls back to an eager step.
+
+Inside an NCCL process group (a data-parallel rank, JAX's step jitted
+over the mesh with its ``psum`` inside) the graph holds the step's
+collectives too: the gradient all-reduce of each update and the metric
+all-reduce (:func:`mpgan_torch.parallel.mesh.all_reduce_mean`).
+``ProcessGroupNCCL`` runs them on its own stream, which joins the capture
+through the events it orders the streams with, so a replay runs them
+where an eager step does. The communicator exists before any capture:
+the state's broadcast at the runtime's start makes it, and every
+program's eager first use all-reduces. A gloo group's collectives run on
+the host, which a graph cannot hold, so there the trainer steps eagerly
+(:class:`mpgan_torch.train.loop.Trainer`). Every rank picks the same
+program at each step, as the choice is a function of the step counter
+and the schedule, which the ranks share.
+
+:class:`Graph` is also the capture primitive of the inference programs
+(:class:`mpgan_torch.infer.assemble.GraphedProgram`), which draw nothing
+and so register no generator.
 """
 
 from __future__ import annotations
@@ -43,29 +61,36 @@ from mpgan_torch.ops import warp_kernel
 
 class Graph:
     """A function captured once as a CUDA graph and replayed: the capture
-    primitive of :class:`Program`.
+    primitive of :class:`Program` and of the inference programs.
 
     ``Graph(fn, generator)`` captures ``fn()`` with ``generator`` (a CUDA
-    ``torch.Generator``) registered; :meth:`replay` runs it and returns
-    the outputs the capture returned; :meth:`reset` releases the graph and
-    its memory pool. ``launches`` is (forward, backward) warp kernel
-    launches in the graph.
+    ``torch.Generator``, or None for a function that draws nothing)
+    registered; :meth:`replay` runs it and returns the outputs the capture
+    returned, which every replay overwrites; :meth:`reset` releases the
+    graph and its memory pool. ``launches`` is (forward, backward) warp
+    kernel launches in the graph.
+
+    The capture holds only the capturing thread to CUDA's capture rules
+    (``thread_local``): other threads of the process go on working, such
+    as a server's request threads fetching earlier results and the NCCL
+    watchdog querying its events.
     """
 
     @staticmethod
     def available(device: torch.device) -> bool:
         return torch.device(device).type == "cuda"
 
-    def __init__(self, fn, generator: torch.Generator):
+    def __init__(self, fn, generator: torch.Generator | None = None):
         graph = torch.cuda.CUDAGraph()
-        if not hasattr(graph, "register_generator_state"):
-            raise RuntimeError(
-                f"torch {torch.__version__} cannot register a generator with "
-                "a CUDA graph (CUDAGraph.register_generator_state), which "
-                "the graphed train step draws its batches from")
-        graph.register_generator_state(generator)
+        if generator is not None:
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    f"torch {torch.__version__} cannot register a generator "
+                    "with a CUDA graph (CUDAGraph.register_generator_state), "
+                    "which the graphed train step draws its batches from")
+            graph.register_generator_state(generator)
         n0 = (warp_kernel.launches, warp_kernel.bwd_launches)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.out = fn()
         self.launches = (warp_kernel.launches - n0[0],
                          warp_kernel.bwd_launches - n0[1])

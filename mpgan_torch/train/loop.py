@@ -10,11 +10,13 @@ then the EMA copy of G, then counts the step. :class:`Trainer` drives the
 growth schedule, rebuilds the models at a stage boundary (carrying the
 learned weights forward) and logs metrics.
 
-On a CUDA card a single-process run without ``debugNans`` replays each
-step as a CUDA graph (:mod:`mpgan_torch.train.graphed`), the counterpart
-of the JAX package's jitted step: one graph per device program (stage,
-fade, lazy R1 on or off), captured at the program's second use. On the
-CPU, inside a process group and with ``debugNans`` it steps eagerly.
+On a CUDA card a run without ``debugNans`` replays each step as a CUDA
+graph (:mod:`mpgan_torch.train.graphed`), the counterpart of the JAX
+package's jitted step: one graph per device program (stage, fade, lazy R1
+on or off), captured at the program's second use. A rank of an NCCL
+process group replays too, its all-reduces inside the graph (JAX's step
+jitted over the mesh). On the CPU, inside a gloo process group and with
+``debugNans`` it steps eagerly.
 
 Where the port differs from the JAX package's one jitted program:
 - work both discriminator losses share is computed once per D-run: the
@@ -545,11 +547,13 @@ class Trainer:
 
     ``graphs``: whether ``fit`` replays CUDA graphs
     (:mod:`mpgan_torch.train.graphed`). None (the default) replays them on
-    a CUDA card when the run is single-process and ``debugNans`` is off,
-    and steps eagerly otherwise: on the CPU, inside a process group
-    (capturing NCCL collectives is not ported) and with ``debugNans``
-    (which reads every loss on the host). True where graphs cannot run
-    raises ``ValueError``; False steps eagerly everywhere.
+    a CUDA card, alone or as a rank of an NCCL process group (the graphs
+    hold the rank's all-reduces), when ``debugNans`` is off, and steps
+    eagerly otherwise: on the CPU, inside a gloo process group (ranks
+    that share a card: gloo's collectives run on the host, and a graph
+    cannot hold them) and with ``debugNans`` (which reads every loss on
+    the host). True where graphs cannot run raises ``ValueError``; False
+    steps eagerly everywhere.
     """
 
     def __init__(self, cfg: Config, tc: TileCreator, device=None,
@@ -592,9 +596,10 @@ class Trainer:
         why_not = None
         if not graphed.Graph.available(self.device):
             why_not = f"there are no CUDA graphs on {self.device}"
-        elif pmesh.distributed():
-            why_not = ("the trainer is inside a process group, and capturing "
-                       "its collectives is not ported")
+        elif pmesh.distributed() and pmesh.backend() != "nccl":
+            why_not = (f"the trainer is inside a {pmesh.backend()} process "
+                       "group, whose collectives run on the host, and a "
+                       "CUDA graph cannot hold them")
         elif self.cfg.train.debug_nans:
             why_not = "debugNans reads every loss and gradient on the host"
             if graphs is None:

@@ -21,9 +21,17 @@ skipped without one).
   captured at its second, each iteration's seed, the step counter, the
   graphs released at a growth boundary and at a restore; and when
   ``Trainer`` replays graphs at all.
+- Inside a process group of one (gloo, as tests/test_torch_parallel.py):
+  a gloo rank steps eagerly and refuses ``graphs=True``; with the backend
+  reported as NCCL, the rank runs the dispatch rule over the growth
+  schedule, each replay runs the step's four all-reduces (three updates
+  and the metrics), each step's program follows from the step counter
+  alone (so ranks that share it pick alike), and the run equals the
+  eager rank bit for bit.
 - On a card: replay against eager stepping, bit for bit in float32 under
-  cuDNN's deterministic mode, over a growth boundary with fade and R1;
-  the warp launch counts; and ``remat`` under capture. The JAX package is
+  cuDNN's deterministic mode, over a growth boundary with fade and R1,
+  alone and as the rank of an NCCL group of one; the warp launch counts;
+  and ``remat`` under capture. The JAX package is
   imported only inside the test that compares with it, so that on a
   card's machine, which has no JAX, ``python -m pytest --noconftest -p
   no:cacheprovider tests/test_torch_graphed.py -m cuda`` runs the rest.
@@ -35,6 +43,7 @@ import torch
 
 from mpgan_torch.data import pipeline as tpipeline
 from mpgan_torch.ops import warp_kernel
+from mpgan_torch.parallel import mesh as pmesh
 from mpgan_torch.train import graphed
 from mpgan_torch.train import loop as tloop
 from mpgan_torch.train import recipe
@@ -224,6 +233,79 @@ def test_when_the_trainer_replays_graphs(monkeypatch, capsys):
                       graphs=True)
 
 
+@pytest.fixture
+def group(tmp_path):
+    """This process as the only rank of a gloo group (a FileStore)."""
+    pmesh.init_distributed("file://" + str(tmp_path / "store"), 1, 0,
+                           "gloo")
+    try:
+        yield
+    finally:
+        pmesh.shutdown()
+
+
+def test_a_gloo_rank_steps_eagerly(group, monkeypatch):
+    monkeypatch.setattr(graphed.Graph, "available",
+                        staticmethod(lambda device: True))
+    tc = _tc()
+    assert tloop.Trainer(_config(), tc, device="cpu").graphs is False
+    with pytest.raises(ValueError, match="gloo process group"):
+        tloop.Trainer(_config(), tc, device="cpu", graphs=True)
+
+
+def test_an_nccl_rank_replays_its_collectives(group, monkeypatch, stub):
+    """The rank's dispatch over 16 iterations of the growth schedule (the
+    log of test_dispatch_rule_over_a_growth_schedule), the all-reduces
+    inside each replay, and the state against the eager rank's."""
+    tc = _tc()
+    eager = tloop.Trainer(_growing_config(), tc, device="cpu", graphs=False)
+    eager.fit(16, log_every=16)
+    monkeypatch.setattr(pmesh, "backend", lambda: "nccl")
+    tr = tloop.Trainer(_growing_config(), tc, device="cpu")
+    assert tr.graphs is True
+    reduces, per_replay, picked = [0], [], []
+    all_reduce = torch.distributed.all_reduce
+
+    def counted(*a, **k):
+        reduces[0] += 1
+        return all_reduce(*a, **k)
+
+    stub_replay = StubGraph.replay
+
+    def replay(self):
+        n = reduces[0]
+        out = stub_replay(self)
+        per_replay.append(reduces[0] - n)
+        return out
+
+    call = graphed.Programs.__call__
+
+    def recorded(self, fade, alpha):
+        picked.append((self.rt.step, fade, self.rt.step_stable.r1_due()))
+        return call(self, fade, alpha)
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", counted)
+    monkeypatch.setattr(StubGraph, "replay", replay)
+    monkeypatch.setattr(graphed.Programs, "__call__", recorded)
+    tr.fit(16, log_every=16)
+    assert [e[:2] for e in stub.log] == [
+        ("capture", False), ("replay", False), ("replay", False),
+        ("capture", True), ("replay", True),
+        ("replay", False), ("replay", False), ("replay", False),
+        ("reset", True), ("reset", False),
+        ("capture", False), ("replay", False), ("replay", False),
+        ("capture", False), ("replay", False), ("replay", False)]
+    # Ds, Dt and G's gradients and the metrics: one flat buffer each
+    assert per_replay == [4] * 10
+    # the program of each step is a function of the step counter and the
+    # schedule, which every rank shares
+    assert picked == [(it, 8 <= it < 12, it % 4 == 0) for it in range(16)]
+    got, want = _params(tr), _params(eager)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 # ------------------------------------------------------------------ card
 
 
@@ -236,6 +318,10 @@ def _cuda():
 def _deterministic(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+
+
+STEP_METRICS = ("d_loss", "dt_loss", "g_loss", "g_adv", "l1", "feat",
+                "g_t", "psnr")
 
 
 def _params(tr):
@@ -273,9 +359,8 @@ def test_cuda_replay_equals_eager_bit_for_bit(monkeypatch):
     # program of stage 2 was captured and replayed
     assert [k for k, p in tr.programs.programs.items()
             if p.graph is None] == [(True, True)]
-    metrics = ("d_loss", "dt_loss", "g_loss", "g_adv", "l1", "feat", "g_t",
-               "psnr")
-    assert {k: m1[k] for k in metrics} == {k: m0[k] for k in metrics}
+    assert ({k: m1[k] for k in STEP_METRICS}
+            == {k: m0[k] for k in STEP_METRICS})
     assert p1.keys() == p0.keys()
     for k in p0:
         assert torch.equal(p1[k], p0[k]), k
@@ -298,3 +383,31 @@ def test_cuda_remat_is_captured(monkeypatch):
         got.append(_params(tr))
     for k in got[0]:
         assert torch.equal(got[1][k], got[0][k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_rank_replay_equals_eager_bit_for_bit(monkeypatch,
+                                                         tmp_path):
+    """As test_cuda_replay_equals_eager_bit_for_bit, as the only rank of
+    an NCCL group: the graphs hold the rank's all-reduces."""
+    dev = _cuda()
+    _deterministic(monkeypatch)
+    tc = _tc(dev)
+    pmesh.init_distributed("file://" + str(tmp_path / "store"), 1, 0, "nccl")
+    try:
+        runs = {}
+        for graphs in (False, True):
+            # the default replays in an NCCL group
+            tr = tloop.Trainer(_growing_config(), tc, device=dev,
+                               graphs=None if graphs else False)
+            assert tr.graphs is graphs
+            out = tr.fit(20, log_every=20)
+            torch.cuda.synchronize()
+            runs[graphs] = (out, _params(tr))
+    finally:
+        pmesh.shutdown()
+    (m0, p0), (m1, p1) = runs[False], runs[True]
+    assert ({k: m1[k] for k in STEP_METRICS}
+            == {k: m0[k] for k in STEP_METRICS})
+    for k in p0:
+        assert torch.equal(p1[k], p0[k]), k
