@@ -31,6 +31,15 @@ exit, and no result line:
 3. bundled  the exported 4x L1 pair on sim_1010c frame 12 (32³→128³): f32
             with TF32 off equals the port's CPU output (atol 1e-4); bf16
             keeps PSNR ≥ 34.5 dB against the ground truth
+3b demo     python -m mpgan_torch.demo in all four modes (l1, gan, 8x,
+            8x3) in process through main([mode]) in a temporary
+            directory, the shipped bf16 run: PSNR/SSIM and trilinear
+            printed, the written strip PNG decoded and equal to the
+            strip; each mode again in float32 (TF32 off) through
+            demo.upscale_frame, held to its gate's floors in
+            mpgan_torch.quality.GATES (8x3 to psnr3/ssim3 over 8x's
+            two-pass values); the bf16 − float32 gap, and after phase 9
+            each way's gap to phase 9's values for the same chain
 4. bench    the main path at the bench shape: 4x, 64³→256³, bf16, base 32,
             2 res blocks, 2 stages, bundled weights; voxels/s; then at
             64³ and at 32³→128³ eager upscale_volume against the graphed
@@ -59,7 +68,8 @@ exit, and no result line:
             2 forward, no backward
 7. train    the flagship training recipe (pass 1, 4x, G base 32 with 2 res
             blocks, D base 32, B=16, LR tile 16, temporal D, hinge, lazy
-            R1 γ=10 every 16 steps, TTUR, EMA 0.999) on a synthetic
+            R1 γ=10 every 16 steps, TTUR, EMA 0.999; Trainer.fit holds
+            cuDNN's deterministic mode) on a synthetic
             2 sims × 4 frames 32³→128³ dataset, through Trainer.fit:
             (a) one batch of draws assembled by the card's and the CPU's
             tile creator (max |Δ| ≤ 1e-6); float32 steps (TF32 off,
@@ -70,10 +80,13 @@ exit, and no result line:
             1e-2), Ds and Dt at step 0 with lrdisc 1; the CPU step without
             oneDNN is reported beside each as the spread of float32
             summation order; (b) bf16, stepping eagerly and replaying
-            CUDA graphs (mpgan_torch.train.graphed): each trainer warmed
+            CUDA graphs (mpgan_torch.train.graphed), each also with fit's
+            cuDNN deterministic mode patched out: each trainer warmed
             up for 33 steps (every program run twice: two R1 steps), then
-            timed in turns (eager, graphed, graphed, eager) of 3 windows
-            of 32 steps (each with two R1 steps) between CUDA events, then
+            timed in turns (eager, graphed, eager and graphed without the
+            mode, then in reverse) of 3 windows of 32 steps (each with
+            two R1 steps) between CUDA events (the mode's cost: the
+            ratio of the medians), then
             8 steps of each under the profiler
             (mpgan_torch.profiling.train_profile: device busy share, host
             launches per step, warp kernels per step by name), which must
@@ -136,20 +149,24 @@ exit, and no result line:
             then with `hangTimeout 5` and MPGAN_HANG_ONCE; each exits 0 with
             its final checkpoint in the run dir it owned
 11c repro   8b's float32 setting (hinge, lrgan 1, lrdisc 1e-2, TF32 off),
-            4 steps, 3 pairs of runs in each of seven ways. Four with the
+            4 steps, 3 pairs of runs in each of eight ways. Four with the
             generator's upsample backward as F.interpolate's own
             (atomics; the port's earlier backward): as it was; with the
             triplet backward kernel swapped for its plain version (the
             autograd of align_triplet_ref under deterministic
             algorithms); with cudnn.deterministic on and
             cudnn.benchmark off; with both.
-            Three with the port's fixed-order upsample backward: alone,
-            with the other two swaps (all_three), and with cuDNN's
+            Four with the port's fixed-order upsample backward: alone,
+            with the other two swaps (all_three), with cuDNN's
             deterministic mode and the triplet backward kernel
-            (kernel_bwd_deterministic: its fixed-point sums); these step
-            eagerly. Prints each way's largest and median parameter gap
-            between the runs of a pair; asserts kernel_bwd_deterministic's
-            are 0 in every pair, reports the others. Then, the gated way
+            (kernel_bwd_deterministic: its fixed-point sums), and as a
+            user runs the trainer, no flag set (trainer_default: the mode
+            Trainer.fit holds); the ways without the mode patch fit's
+            mode out; all step eagerly. Prints each way's largest and
+            median parameter gap between the runs of a pair; asserts
+            kernel_bwd_deterministic's and trainer_default's are 0 in
+            every pair, reports the others and one bf16 pair of
+            trainer_default. Then, the gated way
             replaying CUDA graphs against stepping eagerly through
             Trainer.fit: 32 steps (R1 at steps 0 and 16) and a useGrowing
             stretch of 24 (stage 2 fading over 8 steps, R1 at 16), every
@@ -197,9 +214,14 @@ exit, and no result line:
             g3_l1p3_4x): upscale_volume with its slices split over
             [card] * 2 equals the one-device call, and InferencePipeline
             with 2 and 3 stages over [card] * k streams 6 frames, each
-            equal to upscale_volume's (bf16 within one unit, 2^-7; f32 on
-            2 frames within 1e-4); ms per frame streamed and sequential
-            (CUDA events), reported
+            stage replaying its CUDA graph (one capture per stage), under
+            cuDNN's deterministic mode, bf16 and f32: every frame, read
+            after all are out, equal to an eager pipeline's (built with
+            assemble.graphable answering False) bit for bit and to
+            upscale_volume's (bf16
+            within one unit, 2^-7; f32 within 1e-4); the graphs' pool
+            bytes; bf16 ms per frame graphed, eager and sequential, in
+            turns (CUDA events), reported
 13e nccl    this process as the only rank of an NCCL group: the NCCL
             version; an all-reduce (a sum pre-multiplied by 2, which NCCL
             runs on one rank) captured as the train step's graphs capture
@@ -225,6 +247,7 @@ card's name and power limit (nvidia-smi), and last the line
 Runs on one card; exits non-zero without CUDA.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -634,6 +657,85 @@ def phase_bundled(dev):
                 "psnr_bf16_db": p16}
 
 
+def phase_demo(dev):
+    """3b: ``python -m mpgan_torch.demo`` in all four modes → per mode the
+    shipped bf16 run's and the float32 run's PSNR/SSIM and their gap, the
+    float32 floors."""
+    from mpgan_torch import demo, quality
+    from mpgan_torch.utils import preview
+
+    t0 = phase("3b demo: python -m mpgan_torch.demo, four modes, bf16 "
+               "through main; float32 (TF32 off) held to the gates' floors")
+    keys = ("psnr", "ssim", "psnr_tri", "ssim_tri")
+    res = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            for mode in demo.MODES:
+                t = time.perf_counter()
+                r = demo.main([mode])
+                secs = time.perf_counter() - t
+                with open(os.path.join(d, demo.PNG), "rb") as fh:
+                    png = preview.decode_png(fh.read())
+                assert png.shape == r["strip"].shape and np.array_equal(
+                    png, r["strip"]), (mode, png.shape)
+                assert r["out"].shape == (128, 128, 128, 1) and bool(
+                    np.isfinite(r["out"]).all()), mode
+                res[mode] = {"bfloat16": {k: r[k] for k in keys},
+                             "main_s": secs, "png_shape": list(png.shape)}
+        finally:
+            os.chdir(cwd)
+    with quality.full_f32():
+        for mode, m in demo.MODES.items():
+            lr, gt = quality.read_frame(m.sim, m.frame)
+            r = demo.upscale_frame(mode, lr, gt, dev, "float32")
+            res[mode]["float32"] = {k: r[k] for k in keys}
+            res[mode]["bfloat16_minus_float32"] = {
+                k: res[mode]["bfloat16"][k] - r[k] for k in ("psnr", "ssim")}
+    # each mode's float32 values against its gate's floors: the two-pass
+    # floors for l1, gan and 8x; psnr3/ssim3 (over 8x's two-pass values)
+    # for 8x3
+    for mode, m in demo.MODES.items():
+        f32 = res[mode]["float32"]
+        vals = {"psnr": f32["psnr"], "ssim": f32["ssim"],
+                "tri": f32["psnr_tri"], "ssim_tri": f32["ssim_tri"]}
+        three = len(m.chain) == 3
+        if three:
+            two = res["8x"]["float32"]
+            vals.update(psnr3=f32["psnr"], ssim3=f32["ssim"],
+                        psnr=two["psnr"], ssim=two["ssim"])
+        floors = [f for f in quality.GATES[m.gate].floors
+                  if (f[0] in ("psnr3", "ssim3")) == three]
+        checks = quality.check_floors(floors, vals)
+        for c in checks:
+            print(f"   demo {mode} float32: {c['check']}: {c['value']:.4f} "
+                  f"{'ok' if c['ok'] else 'FAILED'}", flush=True)
+        assert checks and all(c["ok"] for c in checks), (mode, checks)
+        res[mode]["floors"] = checks
+    print("   demo " + json.dumps(res), flush=True)
+    done(t0, **{m: "{:.2f}/{:.2f} dB".format(res[m]["bfloat16"]["psnr"],
+                                             res[m]["float32"]["psnr"])
+                for m in res})
+    return res
+
+
+def demo_gaps(demo_res, quality_res):
+    """Each demo mode's bf16 and float32 PSNR/SSIM minus phase 9's float32
+    values for the same chain and frame."""
+    from mpgan_torch import demo
+
+    out = {}
+    for mode, m in demo.MODES.items():
+        (rec,) = [r for r in quality_res["gates"][m.gate]
+                  if tuple(r["chain"][:len(m.chain)]) == m.chain]
+        suffix = "3" if len(m.chain) == 3 else ""
+        ref = {"psnr": rec["psnr" + suffix], "ssim": rec["ssim" + suffix]}
+        out[mode] = {f"{dt}_minus_phase9_{k}": demo_res[mode][dt][k] - ref[k]
+                     for dt in ("bfloat16", "float32") for k in ref}
+    return out
+
+
 def phase_bench(dev):
     from mpgan_torch.infer import assemble
 
@@ -804,8 +906,8 @@ def phase_serve(dev, bundled_lr):
     captures = []
     graph_init = graphed_mod.Graph.__init__
 
-    def counted(self, fn, generator=None):
-        graph_init(self, fn, generator)
+    def counted(self, fn, device, generator=None):
+        graph_init(self, fn, device, generator)
         captures.append(fn)
     try:
         graphed_mod.Graph.__init__ = counted
@@ -1028,12 +1130,13 @@ def phase_train(dev, wk):
     cfg = recipe.flagship_config("bfloat16")
     wk.launches = wk.bwd_launches = 0                  # path starts
     turns = train_turns(cfg, lambda graphs: loop.Trainer(
-        cfg, tc, device=dev, graphs=graphs), n=32, windows=3)
+        cfg, tc, device=dev, graphs=graphs), n=32, windows=3,
+        cudnn_off=True)
     launches, bwd_launches = wk.launches, wk.bwd_launches  # path ends
     steps = turns.pop("steps")
     assert (launches, bwd_launches) == (3 * steps, steps), (launches,
                                                             bwd_launches)
-    rt = turns.pop("trainers")[True].rt
+    rt = turns.pop("trainers")["graphed"].rt
     ema_gap = max(float((rt.ema[k] - p.detach()).abs().max())
                   for k, p in rt.gen.named_parameters())
     assert ema_gap > 0, ema_gap
@@ -1070,68 +1173,98 @@ def _graph_pool_bytes():
                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
 
 
-def train_turns(cfg, make, n, windows):
-    """An eager and a graphed trainer (``make(graphs)``), each warmed up
-    until every program has run twice (two lazy R1 steps and one more),
-    timed in turns (eager, graphed, graphed, eager) of ``windows`` windows
-    of ``n`` steps between CUDA events, then profiled for 8 steps each
+@contextlib.contextmanager
+def cudnn_mode_off():
+    """Trainer.fit without its cuDNN deterministic mode: the caller's
+    flags stay as they are for the block."""
+    from mpgan_torch.train import loop
+
+    held = loop.deterministic_cudnn
+    loop.deterministic_cudnn = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        loop.deterministic_cudnn = held
+
+
+def train_turns(cfg, make, n, windows, cudnn_off=False):
+    """An eager and a graphed trainer (``make(graphs)``), with
+    ``cudnn_off`` also an eager and a graphed one whose ``fit`` runs
+    without cuDNN's deterministic mode (:func:`cudnn_mode_off`), each
+    warmed up until every program has run twice (two lazy R1 steps and one
+    more), timed in turns (the ways in order, then in reverse) of
+    ``windows`` windows of ``n`` steps between CUDA events, then the
+    default two profiled for 8 steps each
     (mpgan_torch.profiling.train_profile), which must show 3 triplet
     forward and 1 triplet backward warp kernels per step. → per way the
     median ms per step and the windows, the last metrics, peak allocated
-    bytes over its turns, its profile split, and the graphs' pool bytes;
-    with the trainers and the steps both took in all."""
+    bytes over its turns (and the profile split), and the graphs' pool
+    bytes; with the trainers by way and the steps all took in all."""
     from mpgan_torch import profiling
 
+    ways = {"eager": (False, True), "graphed": (True, True)}
+    if cudnn_off:
+        ways.update(eager_cudnn_off=(False, False),
+                    graphed_cudnn_off=(True, False))
     trainers, its, start, out = {}, {}, {}, {}
-    ms = {False: [], True: []}
-    peak = {False: 0, True: 0}
+    ms = {w: [] for w in ways}
+    peak = dict.fromkeys(ways, 0)
     warm = 2 * max(cfg.loss.r1_interval, 1) + 1
-    for graphs in (False, True):
-        tr = trainers[graphs] = make(graphs)
+
+    def fit(way, steps):
+        mode = (contextlib.nullcontext() if ways[way][1]
+                else cudnn_mode_off())
+        with mode:
+            out[way] = trainers[way].fit(its[way] + steps,
+                                         start_it=its[way], log_every=steps)
+        its[way] += steps
+
+    for way, (graphs, _) in ways.items():
+        tr = trainers[way] = make(graphs)
         assert tr.graphs == graphs
-        its[graphs] = start[graphs] = tr.runtime().step
-        tr.fit(its[graphs] + warm, start_it=its[graphs], log_every=warm)
-        its[graphs] += warm
+        its[way] = start[way] = tr.runtime().step
+        fit(way, warm)
     torch.cuda.synchronize()
     pool_bytes = _graph_pool_bytes()
-    for graphs in (False, True, True, False):
-        tr = trainers[graphs]
+    for way in list(ways) + list(reversed(ways)):
         events = [torch.cuda.Event(enable_timing=True)
                   for _ in range(windows + 1)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         events[0].record()
         for w in range(windows):
-            out[graphs] = tr.fit(its[graphs] + n, start_it=its[graphs],
-                                 log_every=n)
-            its[graphs] += n
+            fit(way, n)
             events[w + 1].record()
         torch.cuda.synchronize()
-        peak[graphs] = max(peak[graphs], torch.cuda.max_memory_allocated())
-        ms[graphs] += [events[w].elapsed_time(events[w + 1]) / n
-                       for w in range(windows)]
+        peak[way] = max(peak[way], torch.cuda.max_memory_allocated())
+        ms[way] += [events[w].elapsed_time(events[w + 1]) / n
+                    for w in range(windows)]
     res = {"trainers": trainers, "graph_pool_bytes": pool_bytes}
-    for graphs in (False, True):
-        assert all(np.isfinite(out[graphs][k]) for k in TRAIN_METRICS), out
-        prof, _ = profiling.train_profile(trainers[graphs], its[graphs], 8)
-        its[graphs] += 8
-        assert trainers[graphs].rt.step == its[graphs]
+    for way in ways:
+        assert all(np.isfinite(out[way][k]) for k in TRAIN_METRICS), out
+        res[way] = {"ms_per_step": sorted(ms[way])[len(ms[way]) // 2],
+                    "ms_per_step_windows": ms[way],
+                    "peak_mem_bytes": peak[way],
+                    "metrics": {k: out[way][k] for k in TRAIN_METRICS}}
+    for way in ("eager", "graphed"):
+        prof, _ = profiling.train_profile(trainers[way], its[way], 8)
+        its[way] += 8
+        assert trainers[way].rt.step == its[way]
         warp = prof["warp_kernels_per_step"]
         assert warp == {"warp2d_triplet": 3.0, "warp2d_triplet_bwd": 1.0}, (
-            graphs, warp)
-        res["graphed" if graphs else "eager"] = {
-            "ms_per_step": sorted(ms[graphs])[len(ms[graphs]) // 2],
-            "ms_per_step_windows": ms[graphs],
-            "peak_mem_bytes": peak[graphs],
-            "metrics": {k: out[graphs][k] for k in TRAIN_METRICS},
-            "profile": {k: prof[k] for k in (
-                "wall_ms_per_step", "kernel_ms_per_step",
-                "device_busy_share", "host_launches_per_step",
-                "host_launches_by_call", "device_activities_per_step",
-                "warp_kernels_per_step", "warp_kernel_device_ms_by_name",
-                "nccl_kernels_per_step",
-                "nccl_kernel_device_us_per_step_by_name")}}
-    res["steps"] = sum(its[g] - start[g] for g in its)
+            way, warp)
+        res[way]["profile"] = {k: prof[k] for k in (
+            "wall_ms_per_step", "kernel_ms_per_step",
+            "device_busy_share", "host_launches_per_step",
+            "host_launches_by_call", "device_activities_per_step",
+            "warp_kernels_per_step", "warp_kernel_device_ms_by_name",
+            "nccl_kernels_per_step",
+            "nccl_kernel_device_us_per_step_by_name")}
+    if cudnn_off:
+        res["cudnn_mode_cost"] = {
+            w: res[w]["ms_per_step"] / res[f"{w}_cudnn_off"]["ms_per_step"]
+            for w in ("eager", "graphed")}
+    res["steps"] = sum(its[w] - start[w] for w in its)
     return res
 
 
@@ -1433,6 +1566,39 @@ def _peak_after(fn):
     return out, time.perf_counter() - t, torch.cuda.max_memory_allocated()
 
 
+@contextlib.contextmanager
+def counted_captures():
+    """A list that gets one entry per CUDA graph captured in the block
+    (mpgan_torch.train.graphed.Graph)."""
+    from mpgan_torch.train import graphed as graphed_mod
+
+    captures = []
+    graph_init = graphed_mod.Graph.__init__
+
+    def counted(self, fn, device, generator=None):
+        graph_init(self, fn, device, generator)
+        captures.append(fn)
+    graphed_mod.Graph.__init__ = counted
+    try:
+        yield captures
+    finally:
+        graphed_mod.Graph.__init__ = graph_init
+
+
+@contextlib.contextmanager
+def eager_only():
+    """Within the block nothing is graphable (mpgan_torch.infer.assemble
+    .graphable answers False): what is built there runs eagerly."""
+    from mpgan_torch.infer import assemble
+
+    graphable = assemble.graphable
+    assemble.graphable = lambda device, devices=None: False
+    try:
+        yield
+    finally:
+        assemble.graphable = graphable
+
+
 def phase_streamed(dev):
     from mpgan_torch import quality
     from mpgan_torch.infer import assemble
@@ -1615,19 +1781,22 @@ def _interpolate_upsample(x, fh, fw):
 
 
 # phase 11c: way → (F.interpolate's upsample backward, plain triplet
-# backward, cuDNN deterministic)
+# backward, cuDNN's deterministic mode: "off" with Trainer.fit's own mode
+# patched out, "set" by the phase, "fit" left to Trainer.fit)
 REPRO_WAYS = {
-    "interpolate_bwd": (True, False, False),
-    "plain_triplet_bwd": (True, True, False),
-    "cudnn_deterministic": (True, False, True),
-    "both": (True, True, True),
-    "fixed_upsample_bwd": (False, False, False),
-    "all_three": (False, True, True),
-    "kernel_bwd_deterministic": (False, False, True),
+    "interpolate_bwd": (True, False, "off"),
+    "plain_triplet_bwd": (True, True, "off"),
+    "cudnn_deterministic": (True, False, "set"),
+    "both": (True, True, "set"),
+    "fixed_upsample_bwd": (False, False, "off"),
+    "all_three": (False, True, "set"),
+    "kernel_bwd_deterministic": (False, False, "set"),
+    "trainer_default": (False, False, "fit"),
 }
-# the way whose every pair must reproduce bit for bit: the fixed-order
-# upsample backward, the triplet backward kernel, cuDNN deterministic
-REPRO_GATED = "kernel_bwd_deterministic"
+# the ways whose every pair must reproduce bit for bit: the fixed-order
+# upsample backward, the triplet backward kernel, cuDNN deterministic (set
+# by the phase; set by Trainer.fit alone, the trainer as a user runs it)
+REPRO_GATED = ("kernel_bwd_deterministic", "trainer_default")
 REPRO_PAIRS = 3
 
 
@@ -1687,6 +1856,17 @@ def phase_repro(dev, wk):
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
             loop.Trainer.__init__ = eager_trainer_init
+            def pair_gap(way, k, flags_line):
+                for i in (0, 1):
+                    cli.main((flags_line + f"testPath {d}/{way}{k}{i}/")
+                             .split())
+                torch.cuda.synchronize()
+                a, b = (_state_tensors(ckpt.restore(ckpt.run_dir(
+                    f"{d}/{way}{k}{i}", 0), 2, "cpu")[0]) for i in (0, 1))
+                assert all(bool(torch.isfinite(t.float()).all())
+                           for t in a.values())
+                return _state_gap(a, b)
+
             for way, (interp, plain, determ) in REPRO_WAYS.items():
                 up = _interpolate_upsample if interp else fixed_up[0]
                 generator.upsample_nchw = upsample.upsample_nchw = up
@@ -1694,25 +1874,24 @@ def phase_repro(dev, wk):
                                                else kernel_bwd)
                 loop.TrainStep.__init__ = (plain_bwd_step_init if plain
                                            else step_init)
-                cudnn.deterministic = determ
-                cudnn.benchmark = False if determ else flags[1]
+                cudnn.deterministic, cudnn.benchmark = flags
+                if determ == "set":
+                    cudnn.deterministic, cudnn.benchmark = True, False
                 wk.launches = wk.bwd_launches = 0
-                gaps = []
-                for k in range(REPRO_PAIRS):
-                    for i in (0, 1):
-                        cli.main((f32 + f"testPath {d}/{way}{k}{i}/").split())
-                    torch.cuda.synchronize()
-                    a, b = (_state_tensors(ckpt.restore(ckpt.run_dir(
-                        f"{d}/{way}{k}{i}", 0), 2, "cpu")[0])
-                        for i in (0, 1))
-                    assert all(bool(torch.isfinite(t.float()).all())
-                               for t in a.values())
-                    gaps.append(_state_gap(a, b))
+                with (cudnn_mode_off() if determ == "off"
+                      else contextlib.nullcontext()):
+                    gaps = [pair_gap(way, k, f32)
+                            for k in range(REPRO_PAIRS)]
                 res[way] = {"repeat_max_abs_gaps": gaps,
                             "largest": max(gaps),
                             "median": sorted(gaps)[REPRO_PAIRS // 2],
+                            "cudnn_mode": determ,
                             "warp_launches": wk.launches,
                             "warp_bwd_kernel_launches": wk.bwd_launches}
+            # the trainer as a user runs it, in bf16: one pair, reported
+            cudnn.deterministic, cudnn.benchmark = flags
+            res["trainer_default_bfloat16"] = {"repeat_max_abs_gap": pair_gap(
+                "bf16", 0, f32.replace("dtype float32", "dtype bfloat16"))}
 
             # the gated way replaying graphs against stepping eagerly: 32
             # steps of the recipe (R1 at steps 0 and 16), then a useGrowing
@@ -1722,7 +1901,7 @@ def phase_repro(dev, wk):
             generator.upsample_nchw, upsample.upsample_nchw = fixed_up
             wk.align_triplet_kernel_bwd = kernel_bwd
             loop.TrainStep.__init__ = step_init
-            cudnn.deterministic, cudnn.benchmark = True, False
+            # no flag set here: Trainer.fit holds cuDNN's deterministic mode
             cfg = cfgmod.from_cli(f32.split())
             tc = TileCreator(FluidDataLoader(f"{d}/data/", 1000, 1000, 0,
                                              4).get(), 16, 0.0, device=dev)
@@ -1754,10 +1933,12 @@ def phase_repro(dev, wk):
             torch.backends.cudnn.allow_tf32 = True
             torch.backends.cuda.matmul.allow_tf32 = True
     print("   repro " + json.dumps(res), flush=True)
-    gated = res[REPRO_GATED]
-    assert gated["largest"] == 0.0, (REPRO_GATED, gated)
-    # the kernel ran in every run (the step checks its own 3 + 1 launches)
-    assert gated["warp_bwd_kernel_launches"] >= 2 * REPRO_PAIRS, gated
+    for way in REPRO_GATED:
+        gated = res[way]
+        assert gated["largest"] == 0.0, (way, gated)
+        # the kernel ran in every run (the step checks its own 3 + 1
+        # launches)
+        assert gated["warp_bwd_kernel_launches"] >= 2 * REPRO_PAIRS, gated
     for name in ("graphed_recipe", "graphed_growing"):
         r = res[name]
         assert r["max_abs_gap"] == 0.0 and r["metrics_equal"], (name, r)
@@ -2043,8 +2224,8 @@ def phase_parallel(dev, wk):
         captures = []
         graph_init = graphed.Graph.__init__
 
-        def counted(self, fn, generator=None):
-            graph_init(self, fn, generator)
+        def counted(self, fn, device, generator=None):
+            graph_init(self, fn, device, generator)
             captures.append(pmesh.backend())
         graphed.Graph.__init__ = counted
         try:
@@ -2306,9 +2487,30 @@ def phase_nccl_rank(dev, wk):
     return res
 
 
+def _pipeline_turns(ways, frames, turns):
+    """Each of ``ways`` (name → a function that streams ``frames``) in
+    turns (in order, then in reverse), ``turns`` times, one stream between
+    CUDA events → name → (median ms per frame, every turn's)."""
+    ms = {name: [] for name in ways}
+    order = list(ways) + list(reversed(ways))
+    for _ in range(turns):
+        for name in order:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            ways[name]()
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[name].append(ev[0].elapsed_time(ev[1]) / len(frames))
+    return {name: (sorted(v)[len(v) // 2], v) for name, v in ms.items()}
+
+
 def _parallel_inference(dev):
-    """13d → per dtype: the sliced call's error, each pipeline's split,
-    error and (bf16) ms per frame streamed and sequential."""
+    """13d → per dtype: the sliced call's error; per pipeline its split,
+    the graphed stream equal to the eager one bit for bit (6 frames, read
+    after all are out, cuDNN's deterministic mode), its error to
+    upscale_volume, the graphs' pool bytes and (bf16) ms per frame
+    graphed, eager and sequential, in turns."""
     from mpgan_torch.infer import assemble, load
     from mpgan_torch.infer.pipeline import InferencePipeline
 
@@ -2316,50 +2518,73 @@ def _parallel_inference(dev):
                                               dtype=np.float32)
               for s in range(6)]
     out = {}
-    for dtype, tol in (("bfloat16", BF16_UNIT), ("float32", 1e-4)):
-        torch.backends.cudnn.allow_tf32 = dtype != "float32"
-        torch.backends.cuda.matmul.allow_tf32 = dtype != "float32"
-        cfg, g1, g2 = load_chain(dtype, dev)
-        g3 = load.load_bundled("g3_l1p3_4x", dtype, dev)
-        use = frames if dtype == "bfloat16" else frames[:2]
-        with torch.inference_mode():
-            lr = torch.from_numpy(use[0]).to(dev)
-            one = assemble.upscale_volume(g1, g2, lr, 4)
-            two = assemble.upscale_volume(g1, g2, lr, 4, devices=[dev] * 2)
-            sliced_err = float((two.float() - one.float()).abs().max())
-        assert sliced_err <= tol, (dtype, sliced_err)
-        res = {"apply_sliced_2_devices_max_abs_err": sliced_err}
-        for k, gen3 in ((2, None), (3, g3)):
-            def sequential():
-                with torch.inference_mode():
-                    return [assemble.upscale_volume(
-                        g1, g2, torch.from_numpy(f).to(dev), 4, gen3=gen3)
-                        for f in use]
-            pp = InferencePipeline(g1, g2, 4, devices=[dev] * k, gen3=gen3)
-            want = sequential()
-            got = list(pp.stream(use))
-            err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(got, want))
-            assert len(got) == len(use) and err <= tol, (dtype, k, err)
-            entry = {"split": list(pp.split), "max_abs_err": err,
-                     "frames": len(use)}
-            if dtype == "bfloat16":
-                for name, fn in (("streamed", lambda: list(pp.stream(use))),
-                                 ("sequential", sequential)):
-                    fn()
-                    torch.cuda.synchronize()
-                    ev = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                    ev[0].record()
-                    fn()
-                    ev[1].record()
-                    torch.cuda.synchronize()
-                    entry[f"{name}_ms_per_frame"] = (
-                        ev[0].elapsed_time(ev[1]) / len(use))
-            res[f"pipeline_{k}_stages"] = entry
-        out[dtype] = res
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for dtype, tol in (("bfloat16", BF16_UNIT), ("float32", 1e-4)):
+            torch.backends.cudnn.allow_tf32 = dtype != "float32"
+            torch.backends.cuda.matmul.allow_tf32 = dtype != "float32"
+            cfg, g1, g2 = load_chain(dtype, dev)
+            g3 = load.load_bundled("g3_l1p3_4x", dtype, dev)
+            with torch.inference_mode():
+                lr = torch.from_numpy(frames[0]).to(dev)
+                one = assemble.upscale_volume(g1, g2, lr, 4)
+                two = assemble.upscale_volume(g1, g2, lr, 4,
+                                              devices=[dev] * 2)
+                sliced_err = float((two.float() - one.float()).abs().max())
+            assert sliced_err <= tol, (dtype, sliced_err)
+            res = {"apply_sliced_2_devices_max_abs_err": sliced_err}
+            for k, gen3 in ((2, None), (3, g3)):
+                def sequential():
+                    with torch.inference_mode():
+                        return [assemble.upscale_volume(
+                            g1, g2, torch.from_numpy(f).to(dev), 4,
+                            gen3=gen3) for f in frames]
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()    # released graphs' pools go
+                pools = _graph_pool_bytes()
+                pp = InferencePipeline(g1, g2, 4, devices=[dev] * k,
+                                       gen3=gen3)
+                with eager_only():
+                    eager = InferencePipeline(g1, g2, 4, devices=[dev] * k,
+                                              gen3=gen3)
+                assert not any(st.graphed for st in eager.stages)
+                assert all(st.graphed for st in pp.stages)
+                want = sequential()
+                with counted_captures() as captures:
+                    got = list(pp.stream(frames))
+                ref = list(eager.stream(frames))
+                torch.cuda.synchronize()
+                pool_bytes = _graph_pool_bytes() - pools
+                # one capture per stage (frame 1), read after all frames
+                assert len(captures) == k, (k, len(captures))
+                assert all(torch.equal(a, b) for a, b in zip(got, ref)), (
+                    dtype, k)
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want))
+                assert len(got) == len(frames) and err <= tol, (dtype, k,
+                                                                err)
+                entry = {"split": list(pp.split), "max_abs_err": err,
+                         "frames": len(frames),
+                         "graphed_equals_eager": True,
+                         "graph_pool_bytes": pool_bytes}
+                del got, ref, want
+                if dtype == "bfloat16":
+                    turns = _pipeline_turns(
+                        {"graphed": lambda: list(pp.stream(frames)),
+                         "eager": lambda: list(eager.stream(frames)),
+                         "sequential": sequential}, frames, turns=2)
+                    for name, (med, all_ms) in turns.items():
+                        entry[f"{name}_ms_per_frame"] = med
+                        entry[f"{name}_ms_per_frame_turns"] = all_ms
+                pp.release()
+                res[f"pipeline_{k}_stages"] = entry
+            out[dtype] = res
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
     return out
 
 
@@ -2392,12 +2617,16 @@ def main():
     warp_err, times = phase_warp(dev, wk)
     single_launches, single_err = phase_single_path(dev, wk)
     bundled_lr, bundled_quality = phase_bundled(dev)
+    demo_res = phase_demo(dev)
     bench = phase_bench(dev)
     served = phase_serve(dev, bundled_lr)
     align_launches, align_err = phase_align(dev, wk)
     train = phase_train(dev, wk)
     cli_res = phase_cli(dev, wk)
     quality = phase_quality(dev)
+    demo_res["gaps_to_phase9"] = demo_gaps(demo_res, quality)
+    print("   demo gaps to phase 9 " + json.dumps(demo_res["gaps_to_phase9"]),
+          flush=True)
     streamed = phase_streamed(dev)
     recover = phase_recover(dev, wk)
     repro = phase_repro(dev, wk)
@@ -2451,7 +2680,8 @@ def main():
             "warp_bwd_launches_per_rank"])
     print(json.dumps({"kernels": kernels, "main_path": bench,
                       "serve": served,
-                      "bundled": bundled_quality, "train": train,
+                      "bundled": bundled_quality, "demo": demo_res,
+                      "train": train,
                       "cli": cli_res, "quality": quality,
                       "streamed": streamed, "recover": recover,
                       "repro": repro, "datagen": datagen,

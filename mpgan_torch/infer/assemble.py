@@ -25,7 +25,11 @@ slice order. Per-slice 2D convolutions need no halo exchange.
 On one card a whole upscale is one device program, as JAX jits it
 (:func:`make_graphed_upscaler`, the counterpart of ``make_jitted_upscaler``):
 a CUDA graph per input shape, replayed per call (:class:`GraphedProgram`),
-and each sweep replays one program over all its volumes.
+and each sweep replays one program over all its volumes; so does each
+stage of :class:`mpgan_torch.infer.pipeline.InferencePipeline` on one card.
+The streamed assembly's chunks run eagerly (JAX jits its ``chunk_fn``):
+the host's fetch of each chunk bounds that path, and a capture made anew
+per call costs more than its replays save.
 """
 
 from __future__ import annotations
@@ -286,17 +290,19 @@ def graphable(device, devices=None) -> bool:
 
 
 class GraphedProgram:
-    """``fn(x)`` for inputs of one shape and dtype as one captured CUDA
-    graph (:class:`mpgan_torch.train.graphed.Graph`), by the rule of the
-    train step's :class:`~mpgan_torch.train.graphed.Program`: the first
-    use runs ``fn`` eagerly (the warm-up: cuDNN's algorithm choice, the
-    upsample weights, replicas), the second copies ``x`` into the
-    program's static input on ``device`` and captures, every later use
-    copies in and replays. From the second use on, ``program(x)`` returns
-    the graph's static output, which the next replay overwrites: a caller
-    that keeps it copies it first (:func:`make_graphed_upscaler`).
+    """``fn(*xs)`` for inputs of one shape and dtype each as one captured
+    CUDA graph (:class:`mpgan_torch.train.graphed.Graph`), by the rule of
+    the train step's :class:`~mpgan_torch.train.graphed.Program`: the
+    first use runs ``fn`` eagerly (the warm-up: cuDNN's algorithm choice,
+    the upsample weights, replicas), the second copies each input into the
+    program's static inputs (``xs``, contiguous, on ``device``) and
+    captures, every later use copies in and replays. From the second use
+    on, ``program(*xs)`` returns the graph's static output, which the next
+    replay overwrites: a caller that keeps it copies it first
+    (:func:`make_graphed_upscaler`). An input may be None (a pass without
+    velocity); the captured function then gets None there too.
 
-    ``x`` may lie on the host. A replay raises ``RuntimeError`` when a
+    An input may lie on the host. A replay raises ``RuntimeError`` when a
     parameter or buffer of ``modules`` no longer lies where it lay at the
     capture (a module moved or its tensors replaced: the graph would read
     the old storage); values changed in place are read by the replay."""
@@ -307,7 +313,7 @@ class GraphedProgram:
         self.device = canonical(device)
         self.uses = 0
         self.graph: graphed.Graph | None = None
-        self.x: torch.Tensor | None = None
+        self.xs: list[torch.Tensor | None] = []
         self.storage: list[int] = []
 
     def _storage(self) -> list[int]:
@@ -318,28 +324,37 @@ class GraphedProgram:
     def captured(self) -> bool:
         return self.graph is not None
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *xs: torch.Tensor | None) -> torch.Tensor:
         self.uses += 1
         if self.uses == 1:
-            return self.fn(x.to(self.device))
+            return self.fn(*(None if x is None else x.to(self.device)
+                             for x in xs))
         if self.graph is None:
-            self.x = torch.empty(x.shape, dtype=x.dtype, device=self.device)
-            self.x.copy_(x)
+            self.xs = [None if x is None else torch.empty(
+                x.shape, dtype=x.dtype, device=self.device) for x in xs]
+            self._fill(xs)
             self.storage = self._storage()
-            self.graph = graphed.Graph(lambda: self.fn(self.x))
+            self.graph = graphed.Graph(lambda: self.fn(*self.xs),
+                                       self.device)
         elif self._storage() != self.storage:
             raise RuntimeError(
                 "a generator's parameters were moved or replaced since its "
-                "CUDA graph was captured; make a new upscaler")
+                "CUDA graph was captured; make the upscaler or pipeline anew")
         else:
-            self.x.copy_(x)
+            self._fill(xs)
         return self.graph.replay()
 
+    def _fill(self, xs) -> None:
+        for static, x in zip(self.xs, xs, strict=True):
+            if static is not None:
+                static.copy_(x)
+
     def release(self) -> None:
-        """Release the graph, its memory pool and the static input."""
+        """Release the graph, its memory pool and the static inputs."""
         if self.graph is not None:
             self.graph.reset()
-        self.graph = self.x = None
+        self.graph = None
+        self.xs = []
 
 
 class GraphedUpscaler:
@@ -365,20 +380,35 @@ class GraphedUpscaler:
 
     def __call__(self, lr_vol) -> torch.Tensor:
         lr_vol = torch.as_tensor(lr_vol)
-        key = (tuple(lr_vol.shape), lr_vol.dtype)
-        program = self.programs.pop(key, None)
-        if program is None:
-            program = GraphedProgram(self.fn, self.modules, self.device)
-        self.programs[key] = program
-        if len(self.programs) > MAX_PROGRAMS:
-            self.programs.popitem(last=False)[1].release()
+        program = cached_program(
+            self.programs, (tuple(lr_vol.shape), lr_vol.dtype),
+            lambda: GraphedProgram(self.fn, self.modules, self.device))
         with torch.inference_mode():
-            out = program(lr_vol)
-            # a replay returns the graph's own output, which the program's
-            # next replay overwrites (a server fetches a result outside its
-            # device lock, while the next request may replay): hand out a
-            # copy on the device, as JAX hands out a fresh buffer per call
-            return out.clone() if program.captured else out
+            # a server fetches a result outside its device lock, while the
+            # next request may replay
+            return run_copied(program, lr_vol)
+
+
+def cached_program(programs: OrderedDict, key, make) -> GraphedProgram:
+    """The program of ``key`` in ``programs`` (least recently used first),
+    made by ``make()`` when absent and made the most recent; beyond
+    ``MAX_PROGRAMS`` the least recently used one's graph and memory pool
+    are released and it is dropped."""
+    program = programs.pop(key, None)
+    if program is None:
+        program = make()
+    programs[key] = program
+    if len(programs) > MAX_PROGRAMS:
+        programs.popitem(last=False)[1].release()
+    return program
+
+
+def run_copied(program: GraphedProgram, *xs) -> torch.Tensor:
+    """``program(*xs)``, a replay's output copied on the device: the
+    program's next replay overwrites its own output, so every caller gets
+    a fresh tensor, as JAX hands out a fresh buffer per call."""
+    out = program(*xs)
+    return out.clone() if program.captured else out
 
 
 def make_graphed_upscaler(gen1, gen2, up_res: int, stage: int | None = None,

@@ -17,6 +17,18 @@ hand its memory out before the reader is done. Stages may share a device
 (``[cuda:0] * 2``): their streams still overlap on the one card. On the CPU
 the stages run one after another.
 
+A stage replays CUDA graphs, the counterpart of JAX's jitted ``fn1``,
+``fn2`` and ``fn3``, where its group is one card (a list that repeats it
+included, :func:`mpgan_torch.infer.assemble.graphable`), whether or not
+the other stages share that card: it runs its pass as a
+:class:`~mpgan_torch.infer.assemble.GraphedProgram` per input shape and
+dtype (eager at a shape's first frame, captured on its own card at its
+second, replayed after; ``MAX_PROGRAMS`` kept), on its own stream. Each
+replay's output is copied on that stream before the handoff, so that the
+stage's next replay cannot overwrite a frame that the next stage still
+reads. A stage spread over several distinct cards runs eagerly, as a
+capture lives on one device.
+
 Pass 2 runs its convolutions on the full-resolution xy grid, about up_res×
 pass 1's work per frame (pass 3 likewise), so :func:`default_split`
 assigns devices in proportion to [1, up, up].
@@ -25,7 +37,7 @@ assigns devices in proportion to [1, up, up].
 from __future__ import annotations
 
 import contextlib
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
@@ -58,14 +70,43 @@ def default_split(n_devices: int, n_stages: int, up_res: int
 
 
 class _Stage:
-    """One pass on a device group: its devices and, on a card, its own
-    stream on the group's first device."""
+    """One pass on a device group: its devices, its pass function
+    ``fn(gen, *inputs)``, on a card its own stream on the group's first
+    device, and where the group is one card its graphed programs."""
 
-    def __init__(self, devices: list[torch.device]):
+    def __init__(self, devices: list[torch.device], fn):
         self.devices = devices
         self.device = devices[0]
+        self.fn = fn
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
+        self.graphed = assemble.graphable(self.device, devices)
+        # (input shapes and dtypes) → program, least recently used first
+        self.programs: OrderedDict = OrderedDict()
+
+    def run(self, gen, *xs):
+        """The stage's pass over ``xs`` with ``gen`` (its replica on this
+        stage's device); graphed, a replay's output is copied out on the
+        current stream (call inside :meth:`context`). A program holds the
+        replica it captured: a new replica (the generator's parameters
+        changed in place) gets a new program."""
+        if not self.graphed:
+            return self.fn(gen, *xs)
+        key = tuple(None if x is None else (tuple(x.shape), x.dtype)
+                    for x in xs)
+        program = self.programs.get(key)
+        if program is not None and program.modules != [gen]:
+            program.release()
+            del self.programs[key]
+        program = assemble.cached_program(
+            self.programs, key, lambda: assemble.GraphedProgram(
+                lambda *ys: self.fn(gen, *ys), (gen,), self.device))
+        return assemble.run_copied(program, *xs)
+
+    def release(self) -> None:
+        for program in self.programs.values():
+            program.release()
+        self.programs.clear()
 
     def context(self):
         return (torch.cuda.stream(self.stream) if self.stream is not None
@@ -103,7 +144,9 @@ class InferencePipeline:
     Produces the volumes :func:`mpgan_torch.infer.assemble.upscale_volume`
     produces; only the placement differs. ``devices`` defaults to every
     visible card (a list may repeat a device); ``split`` gives the devices
-    per stage (:func:`default_split` when None).
+    per stage (:func:`default_split` when None). A stage on one card
+    replays CUDA graphs (module docstring); :meth:`release` frees the
+    graphs and their pools.
     """
 
     def __init__(self, gen1, gen2, up_res: int,
@@ -126,10 +169,24 @@ class InferencePipeline:
                              "devices (>=1 per stage)")
         self.split = split
         offs = [sum(split[:i]) for i in range(self.n_stages + 1)]
-        self.stages = [_Stage(devices[offs[i]:offs[i + 1]])
-                       for i in range(self.n_stages)]
+        groups = [devices[offs[i]:offs[i + 1]] for i in range(self.n_stages)]
+        fns = [
+            lambda g, lr: assemble.pass1_volume(
+                g, lr, stage=stage, chunk=chunk, devices=groups[0]),
+            lambda g, interm, vel: assemble.pass2_volume(
+                g, interm, vel, stage=stage, chunk=chunk,
+                devices=groups[1]),
+            lambda g, vol, vel: assemble.pass3_volume(
+                g, vol, vel, chunk=chunk, devices=groups[2])]
+        self.stages = [_Stage(group, fn) for group, fn in zip(groups, fns)]
         self.gens = [gen1, gen2, gen3][:self.n_stages]
         self.up_res, self.chunk, self.stage = up_res, chunk, stage
+
+    def release(self) -> None:
+        """Release every stage's graphs and their memory pools (a later
+        frame captures anew)."""
+        for st in self.stages:
+            st.release()
 
     def _enqueue(self, lr_vol) -> tuple[torch.Tensor, object]:
         """Enqueue one frame through every stage → (final volume, the
@@ -153,18 +210,14 @@ class InferencePipeline:
                 lr = st[0].send(lr)
                 if lr.is_cuda and st[0].stream is not None:
                     lr.record_stream(st[0].stream)
-                interm = assemble.pass1_volume(
-                    gens[0], lr, stage=self.stage, chunk=self.chunk,
-                    devices=st[0].devices)
+                interm = st[0].run(gens[0], lr)
                 vel = lr[..., 1:4] if lr.shape[-1] >= 4 else None
                 to2 = st[1].send(interm), st[1].send(vel)
                 vel3 = st[2].send(vel) if three else None
                 done = st[0].mark()
             with st[1].context():
                 interm, vel = st[1].receive(to2, done)
-                out = assemble.pass2_volume(
-                    gens[1], interm, vel, stage=self.stage,
-                    chunk=self.chunk, devices=st[1].devices)
+                out = st[1].run(gens[1], interm, vel)
                 if three:
                     out = st[2].send(out)
                 done2 = st[1].mark()
@@ -172,9 +225,7 @@ class InferencePipeline:
                 with st[2].context():
                     st[2].receive([vel3], done)
                     st[2].receive([out], done2)
-                    out = assemble.pass3_volume(
-                        gens[2], out, vel3, chunk=self.chunk,
-                        devices=st[2].devices)
+                    out = st[2].run(gens[2], out, vel3)
                     done2 = st[2].mark()
         return out, done2
 

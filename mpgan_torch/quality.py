@@ -193,14 +193,21 @@ def run_gate(name: str, device=None, data_dir: str = DATA_DIR) -> list[dict]:
     with full_f32():
         for names in gate.chains:
             vals = chain_values(gate, load_chain(names, dev), dev, data_dir)
-            floors = []
-            for key, minus, op, bound in gate.floors:
-                v = vals[key] - (vals[minus] if minus else 0.0)
-                ok = v >= bound if op == ">=" else v <= bound
-                check = f"{key} - {minus}" if minus else key
-                floors.append({"check": f"{check} {op} {bound:g}",
-                               "value": v, "bound": bound, "ok": bool(ok)})
             records.append({"gate": name, "chain": list(names),
-                            "values": vals, "floors": floors})
+                            "values": vals,
+                            "floors": check_floors(gate.floors, vals)})
     return records
+
+
+def check_floors(floors, vals: dict) -> list[dict]:
+    """Each floor ``(value, minus, op, bound)`` (:class:`Gate`) read over
+    ``vals`` → ``{"check", "value", "bound", "ok"}``."""
+    out = []
+    for key, minus, op, bound in floors:
+        v = vals[key] - (vals[minus] if minus else 0.0)
+        ok = v >= bound if op == ">=" else v <= bound
+        check = f"{key} - {minus}" if minus else key
+        out.append({"check": f"{check} {op} {bound:g}", "value": v,
+                    "bound": bound, "ok": bool(ok)})
+    return out
 

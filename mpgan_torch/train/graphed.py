@@ -54,6 +54,8 @@ and so register no generator.
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
 from mpgan_torch.ops import warp_kernel
@@ -63,24 +65,35 @@ class Graph:
     """A function captured once as a CUDA graph and replayed: the capture
     primitive of :class:`Program` and of the inference programs.
 
-    ``Graph(fn, generator)`` captures ``fn()`` with ``generator`` (a CUDA
-    ``torch.Generator``, or None for a function that draws nothing)
-    registered; :meth:`replay` runs it and returns the outputs the capture
-    returned, which every replay overwrites; :meth:`reset` releases the
-    graph and its memory pool. ``launches`` is (forward, backward) warp
-    kernel launches in the graph.
+    ``Graph(fn, device, generator)`` captures ``fn()`` on the card
+    ``device`` with ``generator`` (a CUDA ``torch.Generator``, or None for
+    a function that draws nothing) registered; :meth:`replay` runs it and
+    returns the outputs the capture returned, which every replay
+    overwrites; :meth:`reset` releases the graph and its memory pool.
+    ``launches`` is (forward, backward) warp kernel launches in the graph.
+
+    The capture runs on a new stream of ``device`` with ``device`` current.
+    ``torch.cuda.graph``'s own side stream is made once per process, on
+    the card current at the first capture: a later capture of work on
+    another card would record nothing on it, while that work ran eagerly
+    on its own card's stream.
 
     The capture holds only the capturing thread to CUDA's capture rules
     (``thread_local``): other threads of the process go on working, such
     as a server's request threads fetching earlier results and the NCCL
-    watchdog querying its events.
+    watchdog querying its events. Python's cyclic garbage collector is
+    held off during the capture: a dropped upscaler or pipeline leaves its
+    graphs in reference cycles, and a collection on the capturing thread
+    would reset them there, which CUDA refuses and which invalidates the
+    capture.
     """
 
     @staticmethod
     def available(device: torch.device) -> bool:
         return torch.device(device).type == "cuda"
 
-    def __init__(self, fn, generator: torch.Generator | None = None):
+    def __init__(self, fn, device, generator: torch.Generator | None = None):
+        device = torch.device(device)
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             if not hasattr(graph, "register_generator_state"):
@@ -90,8 +103,16 @@ class Graph:
                     "which the graphed train step draws its batches from")
             graph.register_generator_state(generator)
         n0 = (warp_kernel.launches, warp_kernel.bwd_launches)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.out = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(
+                    graph, stream=torch.cuda.Stream(device),
+                    capture_error_mode="thread_local"):
+                self.out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = (warp_kernel.launches - n0[0],
                          warp_kernel.bwd_launches - n0[1])
         # capture recorded these launches; they run at each replay
@@ -132,7 +153,7 @@ class Program:
         if self.uses == 1:
             return self.step.run_checked(self.alpha, self.generator, self.r1)
         if self.graph is None:
-            self.graph = Graph(self._run, self.generator)
+            self.graph = Graph(self._run, self.step.device, self.generator)
             self.step.check_launches(self.graph.launches)
         return dict(self.graph.replay())
 

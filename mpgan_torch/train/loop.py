@@ -18,6 +18,12 @@ process group replays too, its all-reduces inside the graph (JAX's step
 jitted over the mesh). On the CPU, inside a gloo process group and with
 ``debugNans`` it steps eagerly.
 
+``fit`` holds cuDNN's deterministic mode for its whole run
+(:func:`deterministic_cudnn`), so that a float32 run repeats bit for bit,
+as the JAX step does: with the fixed-order backwards of the upsample, the
+fade downsample and the warp, cuDNN's algorithm choice is the last source
+of run-to-run parting.
+
 Where the port differs from the JAX package's one jitted program:
 - work both discriminator losses share is computed once per D-run: the
   fake under ``no_grad``, the conditioned inputs and the fake and real
@@ -82,6 +88,7 @@ of float sums.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -535,6 +542,23 @@ def _step_seed(seed: int, it: int, rank: int | None = None) -> int:
     return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic mode (``deterministic=True``,
+    ``benchmark=False``) while the block runs, the caller's two flags
+    restored after, on return and on an exception. Only these two flags
+    are touched: ``torch.backends.cudnn.flags`` would also reset
+    ``allow_tf32`` and the others to its own defaults. cuDNN alone reads
+    them, so on the CPU they change nothing."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 class Trainer:
     """Host-side training loop: growth schedule, stage rebuilds, metrics.
 
@@ -793,7 +817,13 @@ class Trainer:
         With ``graphs`` each step is one program's graph replay (its first
         use steps eagerly, its second captures the graph); a replay's
         metrics are the graph's output tensors, which its next replay
-        overwrites."""
+        overwrites. The whole run, warm-up and captures included, holds
+        cuDNN's deterministic mode (:func:`deterministic_cudnn`)."""
+        with deterministic_cudnn():
+            return self._fit(iters, log_every, on_log, start_it,
+                             on_checkpoint)
+
+    def _fit(self, iters, log_every, on_log, start_it, on_checkpoint):
         cfg = self.cfg
         iters = iters if iters is not None else cfg.train.training_iters
         log_every = log_every or cfg.train.output_interval

@@ -46,6 +46,26 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """The bytes of a PNG that :func:`encode_png` wrote → its (H, W) uint8
+    image (8-bit grayscale, unfiltered scanlines only)."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise ValueError("not a PNG")
+    w, h, depth, color = struct.unpack(">IIBB", data[16:26])
+    if (depth, color) != (8, 0):
+        raise ValueError(f"not 8-bit grayscale: depth {depth}, color {color}")
+    pos, idat = 8, b""
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise ValueError("filtered scanlines are not supported")
+    return rows[:, 1:].copy()
+
+
 def save_png(path: str, img: np.ndarray) -> None:
     """Write an (H, W) uint8 image as a PNG, atomically (tmp + rename)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -70,7 +70,7 @@ class StubGraph:
     def available(device):
         return True
 
-    def __init__(self, fn, generator):
+    def __init__(self, fn, device, generator):
         self.fn, self.generator = fn, generator
         self.r1 = fn.__self__.r1
         self.launches = (0, 0)

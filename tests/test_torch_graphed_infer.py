@@ -57,8 +57,8 @@ class AliasingGraph:
     def available(device):
         return True
 
-    def __init__(self, fn, generator=None):
-        self.fn = fn
+    def __init__(self, fn, device, generator=None):
+        self.fn, self.device = fn, device
         self.out = fn().fill_(float("nan"))
         self.launches = (0, 0)
         self.log.append("capture")

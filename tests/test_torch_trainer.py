@@ -2,7 +2,8 @@
 1 res block, disc base 8, B = 2, 2 sims × 4 frames of 8³ LR at 4×):
 growth across a stage boundary with fade, strict migration with the Dense
 head re-initialised, the warp call count per step, the checks the JAX
-trainer makes, ``debugNans`` and ``profileDir``. One test needs a card
+trainer makes, ``debugNans``, ``profileDir`` and the cuDNN deterministic
+mode that ``fit`` holds. One test needs a card
 (marked ``cuda``; skips without one); this file imports no JAX, so on a
 card's machine run it with
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -178,6 +179,44 @@ def test_fake_triplet_equals_separate_generator_calls():
         want = [gen(b["lr_prev"]), gen(b["lr"]), gen(b["lr_next"])]
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+def _cudnn_flags():
+    c = torch.backends.cudnn
+    return {"deterministic": c.deterministic, "benchmark": c.benchmark,
+            "allow_tf32": c.allow_tf32, "enabled": c.enabled}
+
+
+@pytest.mark.parametrize("allow_tf32", [True, False])
+def test_fit_holds_cudnn_deterministic_mode(monkeypatch, allow_tf32):
+    """During fit cuDNN reads deterministic=True and benchmark=False (seen
+    from the on_log callback at every step); allow_tf32 and the other
+    flags keep the caller's values; every flag comes back after fit."""
+    c = torch.backends.cudnn
+    monkeypatch.setattr(c, "deterministic", False)
+    monkeypatch.setattr(c, "benchmark", True)
+    monkeypatch.setattr(c, "allow_tf32", allow_tf32)
+    before = _cudnn_flags()
+    seen = []
+    tr = tloop.Trainer(_config(), _tc(), device="cpu")
+    tr.fit(2, log_every=1, on_log=lambda t, m: seen.append(_cudnn_flags()))
+    assert seen == [dict(before, deterministic=True, benchmark=False)] * 2
+    assert _cudnn_flags() == before
+
+
+def test_fit_restores_cudnn_flags_when_it_raises(monkeypatch):
+    c = torch.backends.cudnn
+    monkeypatch.setattr(c, "deterministic", False)
+    monkeypatch.setattr(c, "benchmark", True)
+    before = _cudnn_flags()
+
+    def fail(t, m):
+        assert c.deterministic and not c.benchmark
+        raise RuntimeError("stop")
+    tr = tloop.Trainer(_config(), _tc(), device="cpu")
+    with pytest.raises(RuntimeError, match="stop"):
+        tr.fit(2, log_every=1, on_log=fail)
+    assert _cudnn_flags() == before
 
 
 @pytest.mark.cuda

@@ -8,8 +8,9 @@ with cur between them (``align_triplet(use_pallas=True)``'s function).
 Tolerances: 1e-6 for values (the same f32 arithmetic); 1e-4 for gradients
 (as tests/test_warp_pallas.py holds the VJP); on the card 1e-5 for the
 forward kernels (FMA contraction in nvcc's code) and 1e-4 for the
-backward kernel, whose float32 atomics add in an order that changes from
-run to run.
+backward kernel, which sums each cell's contributions as fixed-point
+integers (the same bits on every run) and rounds once to float32 at the
+end.
 
 At zero velocity every backtrace lies exactly on its cell, and on the
 image's first row and column exactly on the border clamp's lower bound.
