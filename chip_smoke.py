@@ -51,7 +51,12 @@ exit, and no result line:
             launches per frame); 64³ and 32³ frames interleaved through
             one graphed upscaler, bf16 and float32 (TF32 off) under cuDNN's
             deterministic mode, each returned frame equal to an eager
-            upscale_volume bit for bit, read after all calls
+            upscale_volume bit for bit, read after all calls; with several
+            cards visible the same frames through one graphed upscaler
+            over every card (each card's share of each pass a program
+            captured on it), equal to an eager upscale_volume over the
+            same cards bit for bit (on one card a line says it needs
+            several)
 5. serve    InferenceServer on a temporary socket under cuDNN's
             deterministic mode, both shapes warmed, 10 requests of 32³ (the
             bundled frame and four random ones) and 64³ (five random)
@@ -188,7 +193,25 @@ exit, and no result line:
             the four 3D sims with it and with the pure-Python codec, equal
             arrays, both timed; `out 0` for 4 pass-1 steps of the flagship
             recipe on them: 3 forward and 1 backward warp launch per step
-            (counts reset just before, read just after)
+            (counts reset just before, read just after); every sim of (b)
+            ran its frames as CUDA graphs (the card's default)
+12d graphs  the solver's step and the datagen frame graphed (GraphedStep,
+            datagen.scene_frames) against eager: a step of the plume scene
+            at 64³ and 128³ with its obstacle and at 256³ without, each
+            with Jacobi and with CG; the moving scene's frame at 128³
+            (noise, the obstacle's mask built in the program from its
+            centre, the step); a 2D Jacobi step at 256²; per case 3 steps
+            from one state equal bit for bit (eager, captured, replayed),
+            then turns (eager, graphed, graphed, eager; 2 rounds) of one
+            window each between CUDA events: median ms per step, host
+            launches per step and busy share over 2 steps
+            (profiling.solver_profile), the graph's pool bytes, beside the
+            card's name and power limit; then one 6-frame sim per scene
+            family at datagen's defaults (128³, upRes 4, warmup 8; plume
+            with its obstacle, varied, varied-dual with CG, moving, and
+            2D at 256²; the HR velocity not written) graphed and eager
+            with the clock stopped: every file byte for byte equal, and
+            each way's frame split printed
 13 parallel data-parallel training and parallel inference, float32 at
             11a's setting for training (ganLoss sce, adamEps 1, TF32 off):
             (a) `out 0` with `coordinator 127.0.0.1:<free port>
@@ -221,7 +244,11 @@ exit, and no result line:
             upscale_volume's (bf16
             within one unit, 2^-7; f32 within 1e-4); the graphs' pool
             bytes; bf16 ms per frame graphed, eager and sequential, in
-            turns (CUDA events), reported
+            turns (CUDA events), reported; with several cards visible a
+            2-stage pipeline over every card at default_split (its pass-2
+            stage over distinct cards, each card's share graphed on it),
+            bf16 and f32, equal to an eager pipeline over the same cards
+            bit for bit (on one card a line says it needs several)
 13e nccl    this process as the only rank of an NCCL group: the NCCL
             version; an all-reduce (a sum pre-multiplied by 2, which NCCL
             runs on one rank) captured as the train step's graphs capture
@@ -768,6 +795,7 @@ def phase_bench(dev):
         res[f"{x.shape[0]}^3"] = upscale_turns(g1, g2, x, frames=4,
                                                windows=5)
     res["graphed_bits"] = graphed_frame_bits(dev)
+    res["graphed_bits_cards"] = multi_card_frame_bits()
     print("   main path " + json.dumps(res), flush=True)
     done(t0, **{f"{k}_eager_graphed_ms": "{:.3f}/{:.3f}".format(
         res[k]["eager"]["frame_ms"], res[k]["graphed"]["frame_ms"])
@@ -862,6 +890,89 @@ def graphed_frame_bits(dev):
                 p.release()
     finally:
         cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = flags
+    return res
+
+
+MULTI_CARD_SIZES = (64, 32)     # phase 4's multi-card frames, interleaved
+
+
+def _cards_turns(g1, g2, graphed, cards, frames):
+    """64³ frames through ``graphed`` (over ``cards``), an eager
+    upscale_volume over the same cards and the one-card graphed upscaler,
+    in turns (in order, then in reverse; 2 rounds; CUDA events on the
+    first card, whose gather waits for every card) → per way the median
+    ms per frame and every turn's."""
+    from mpgan_torch.infer import assemble
+
+    one = assemble.make_graphed_upscaler(g1, g2, 4)
+
+    def eager():
+        with torch.inference_mode():
+            return [assemble.upscale_volume(g1, g2, f, 4, devices=cards)
+                    for f in frames]
+    ways = {"cards_graphed": lambda: [graphed(f) for f in frames],
+            "cards_eager": eager,
+            "one_card_graphed": lambda: [one(f) for f in frames]}
+    for fn in ways.values():
+        fn()
+        fn()
+    res = {name: {"median": med, "turns": all_ms} for name, (med, all_ms)
+           in _pipeline_turns(ways, frames, turns=2).items()}
+    one.programs.popitem()[1].release()
+    return res
+
+
+def multi_card_frame_bits():
+    """Phase 4 over every visible card where there are several: frames of
+    64³ and 32³ interleaved (3 each) through make_graphed_upscaler over
+    the cards (each card's share of each pass its own program, captured
+    on it), bf16 and float32 (TF32 off), under cuDNN's deterministic mode:
+    each returned frame, read after all calls, equals an eager
+    ``upscale_volume`` over the same cards bit for bit → frames compared
+    per dtype and the cards, and bf16 64³ ms per frame graphed over the
+    cards, eager over them and graphed on one card, in turns; None on
+    one card."""
+    from mpgan_torch.infer import assemble
+    from mpgan_torch.parallel import mesh as pmesh
+
+    if torch.cuda.device_count() < 2:
+        print("   4 multi-card: graphed shares over distinct cards need "
+              "several cards; 1 visible, not run", flush=True)
+        return None
+    cards = pmesh.make_mesh()
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    res = {"cards": len(cards)}
+    try:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = (True,
+                                                                  False,
+                                                                  False)
+        for dtype in ("bfloat16", "float32"):
+            _, g1, g2 = load_chain(dtype, cards[0])
+            graphed = assemble.make_graphed_upscaler(g1, g2, 4,
+                                                     devices=cards)
+            frames = [torch.from_numpy(np.random.default_rng(20 + i).random(
+                (n, n, n, 4), dtype=np.float32)).to(cards[0])
+                for i in range(3) for n in MULTI_CARD_SIZES]
+            got = [graphed(f) for f in frames]
+            programs = [q for p in graphed.programs.values()
+                        for q in p.programs.values()]
+            assert programs and all(q.captured for q in programs)
+            assert {q.device for q in programs} == set(cards)
+            with torch.inference_mode():
+                for f, g in zip(frames, got):
+                    assert torch.equal(g, assemble.upscale_volume(
+                        g1, g2, f, 4, devices=cards)), (dtype, f.shape)
+            res[dtype] = {"frames_equal": len(frames),
+                          "programs": len(programs)}
+            if dtype == "bfloat16":
+                res[dtype]["ms_per_frame"] = _cards_turns(
+                    g1, g2, graphed, cards, frames[::2])
+            for p in graphed.programs.values():
+                p.release()
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = flags
+    print("   4 multi-card " + json.dumps(res), flush=True)
     return res
 
 
@@ -2045,6 +2156,7 @@ def phase_datagen(dev, wk, card):
         assert [s["sim"] for s in sims] == [1000, 1001, 1002, 1003, 1004]
         assert [s["obstacle"] for s in sims[:2]] == [False, True]
         assert all(s["frames"] == frames for s in sims), sims
+        assert all(s["graphed"] for s in sims), sims    # the card's default
         for s in sims:
             print(f"   12b sim {s['sim']} " + json.dumps(s), flush=True)
         res["b_sims"] = sims
@@ -2105,6 +2217,191 @@ def phase_datagen(dev, wk, card):
     print("   12c " + json.dumps({k: v for k, v in res.items()
                                   if k.startswith("c_")}), flush=True)
     done(t0)
+    return res
+
+# phase 12d: (name, resolution, pressure solver, obstacle, steps per window)
+SOLVER_CASES = (("64^3_jacobi", 64, "jacobi", True, 10),
+                ("64^3_cg", 64, "cg", True, 10),
+                ("128^3_jacobi", 128, "jacobi", True, 6),
+                ("128^3_cg", 128, "cg", True, 6),
+                ("256^3_jacobi", 256, "jacobi", False, 1),
+                ("256^3_cg", 256, "cg", False, 1))
+SOLVER_ROUNDS = 2      # rounds of turns (eager, graphed, graphed, eager)
+
+
+@contextlib.contextmanager
+def fixed_clock():
+    """The wall clock stopped within the block: a .uni header's timestamp
+    and gzip's mtime are equal in two runs, whose files can then be held
+    byte for byte."""
+    wall = time.time
+    time.time = lambda: 1.7e9
+    try:
+        yield
+    finally:
+        time.time = wall
+
+
+def solver_turns(name, ways, state, n, bit_steps=3):
+    """Phase 12d's comparison of one case. ``ways``: "eager" and
+    "graphed" → ``step(state, t)`` → the next state. From ``state`` both
+    take ``bit_steps`` steps (the graphed program eager, captured, then
+    replayed), every field equal bit for bit at every step; then each
+    runs on from its own state, timed in turns (eager, graphed, graphed,
+    eager; ``SOLVER_ROUNDS`` rounds) of one window of ``n`` steps between
+    CUDA events, then profiled for 2 steps each
+    (mpgan_torch.profiling.solver_profile) → per way the median ms per
+    step, the windows and the profile; the graphed program's pool bytes,
+    the ratio of the medians and the seconds of each part."""
+    from mpgan_torch import profiling
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # the pools of released graphs go
+    pools = _graph_pool_bytes()
+    states = dict.fromkeys(ways, state)
+    for t in range(bit_steps):
+        for way, step in ways.items():
+            states[way] = step(states[way], t)
+        assert all(torch.equal(g, e) for g, e in zip(
+            states["graphed"], states["eager"])), (name, t)
+    torch.cuda.synchronize()
+    pool_bytes = _graph_pool_bytes() - pools
+    t1 = time.perf_counter()
+    clock = dict.fromkeys(ways, bit_steps)
+
+    def one(way):
+        states[way] = ways[way](states[way], clock[way])
+        clock[way] += 1
+    ms = {way: [] for way in ways}
+    for _ in range(SOLVER_ROUNDS):
+        for way in ("eager", "graphed", "graphed", "eager"):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for _ in range(n):
+                one(way)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[way].append(ev[0].elapsed_time(ev[1]) / n)
+    t2 = time.perf_counter()
+    res = {"bit_steps_equal": bit_steps, "graph_pool_bytes": pool_bytes}
+    for way in ways:
+        res[way] = {"ms_per_step": sorted(ms[way])[len(ms[way]) // 2],
+                    "ms_per_step_windows": ms[way],
+                    "profile": profiling.solver_profile(
+                        lambda w=way: one(w), 2)}
+    res["graphed_over_eager"] = (res["graphed"]["ms_per_step"]
+                                 / res["eager"]["ms_per_step"])
+    res["s"] = {"bits": t1 - t0, "turns": t2 - t1,
+                "profiles": time.perf_counter() - t2}
+    return res
+
+
+def phase_solver_graphs(dev, card):
+    """12d: the solver's step and the datagen frame graphed against eager
+    on the card (module docstring)."""
+    from mpgan_torch.solver import datagen, smoke, smoke2d
+    from mpgan_torch.solver.graphed import GraphedStep
+
+    t0 = phase("12d solver step and datagen frame: graphed against eager")
+    res = {"card": card, "steps": {}}
+    for name, n, solver, obstacle, per_window in SOLVER_CASES:
+        sc = datagen.make_scene(0, n, "plume", obstacle, solver, dev)
+        src = sc.inflow * 0.75
+        graphed_step = GraphedStep()
+        res["steps"][name] = solver_turns(name, {
+            "eager": lambda s, t: smoke.step(s, sc.params, src, sc.inflow),
+            "graphed": lambda s, t: graphed_step(s, sc.params, src,
+                                                 sc.inflow)},
+            sc.state, per_window)
+        graphed_step.release()
+        del sc, src, graphed_step
+    # the moving scene's frame at 128^3: noise, the obstacle's mask built
+    # in the program from its centre, the step
+    sc = datagen.make_scene(3, 128, "moving", device=dev)
+    with eager_only():
+        eager = datagen.scene_frames(sc, 3, 4, dev)
+    frames = datagen.scene_frames(sc, 3, 4, dev)
+    assert frames.graphed and not eager.graphed
+    res["steps"]["128^3_moving_frame"] = solver_turns(
+        "128^3_moving_frame", {"eager": eager.advance,
+                               "graphed": frames.advance}, sc.state, 6)
+    frames.release()
+    # 2D at 256^2 with a disc obstacle
+    solid = smoke2d.disc_mask(256, 256, (0.55, 0.5), 0.1, dev)
+    inflow = smoke2d.disc_mask(256, 256, (0.12, 0.5), 0.12, dev) * (
+        1 - solid)
+    params = smoke.SmokeParams(dt=0.5, buoyancy=2e-2, vorticity_eps=0.1,
+                               jacobi_iters=50, maccormack=True)
+    graphed_step = GraphedStep(smoke2d.step)
+    res["steps"]["256^2_2d_jacobi"] = solver_turns("256^2_2d_jacobi", {
+        "eager": lambda s, t: smoke2d.step(s, params, inflow * 0.75,
+                                           inflow),
+        "graphed": lambda s, t: graphed_step(s, params, inflow * 0.75,
+                                             inflow)},
+        smoke2d.init_state(256, 256, solid, dev), 10)
+    graphed_step.release()
+    for name, r in res["steps"].items():
+        print(f"   12d {name} " + json.dumps({
+            "eager_ms": r["eager"]["ms_per_step"],
+            "graphed_ms": r["graphed"]["ms_per_step"],
+            "ratio": r["graphed_over_eager"],
+            "launches_per_step": [r[w]["profile"]["host_launches_per_step"]
+                                  for w in ("eager", "graphed")],
+            "busy": [r[w]["profile"]["device_busy_share"]
+                     for w in ("eager", "graphed")],
+            "pool_bytes": r["graph_pool_bytes"], "s": r["s"]}), flush=True)
+
+    # one 6-frame sim per scene family at datagen's defaults (128^3, upRes
+    # 4, warmup 8; the HR velocity not written, to keep the phase short),
+    # graphed and eager in turns, the files held byte for byte
+    sims = (("plume", dict(with_obstacle=True)),
+            ("varied", {}),
+            ("varied-dual", dict(pressure_solver="cg")),
+            ("moving", {}),
+            ("2d", {}))
+    res["datagen"] = {}
+    with tempfile.TemporaryDirectory() as d, fixed_clock():
+        for i, (scene, kw) in enumerate(sims):
+            runs = {}
+            # the first sim's first way pays for the kernels' first use:
+            # the order alternates
+            order = ("graphed", "eager") if i % 2 == 0 else ("eager",
+                                                             "graphed")
+            for way in order:
+                out = os.path.join(d, way, scene)
+                ctx = eager_only() if way == "eager" else \
+                    contextlib.nullcontext()
+                with ctx:
+                    if scene == "2d":
+                        runs[way] = datagen.generate_sim_2d(
+                            out, 1010 + i, 256, 4, 6, with_obstacle=True)
+                    else:
+                        runs[way] = datagen.generate_sim(
+                            out, 1010 + i, 128, 4, 6, scene=scene,
+                            save_flags=True, write_high_vel=False, **kw)
+                assert runs[way]["graphed"] == (way == "graphed"), runs[way]
+            names = sorted(os.listdir(os.path.join(d, "eager", scene)))
+            assert names == sorted(os.listdir(os.path.join(d, "graphed",
+                                                           scene)))
+            for fname in names:
+                with open(os.path.join(d, "eager", scene, fname),
+                          "rb") as a, open(os.path.join(
+                              d, "graphed", scene, fname), "rb") as b:
+                    assert a.read() == b.read(), (scene, fname)
+            runs["files_equal"] = len(names)
+            res["datagen"][scene] = runs
+            print(f"   12d datagen {scene} " + json.dumps({
+                way: {k: runs[way][k] for k in (
+                    "seconds", "frame_device_ms", "frame_compute_ms",
+                    "frame_fetch_write_ms")}
+                for way in ("graphed", "eager")} | {"files_equal":
+                                                   len(names)}),
+                flush=True)
+    done(t0, **{name: "{:.3f}/{:.3f}".format(
+        r["eager"]["ms_per_step"], r["graphed"]["ms_per_step"])
+        for name, r in res["steps"].items()})
     return res
 
 
@@ -2585,7 +2882,56 @@ def _parallel_inference(dev):
         cudnn.deterministic, cudnn.benchmark = flags
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
+    out["multi_card"] = multi_card_pipeline(frames)
     return out
+
+
+def multi_card_pipeline(frames):
+    """13d over every visible card where there are several: the 2-stage
+    pipeline at ``default_split`` (its pass-2 stage over distinct cards,
+    each card's share captured on it), bf16 and float32 (TF32 off), under
+    cuDNN's deterministic mode: every frame equal to an eager pipeline's
+    over the same cards bit for bit → per dtype the split and frames
+    compared; None on one card."""
+    from mpgan_torch.infer import assemble
+    from mpgan_torch.infer.pipeline import InferencePipeline
+    from mpgan_torch.parallel import mesh as pmesh
+
+    if torch.cuda.device_count() < 2:
+        print("   13d multi-card: a stage over distinct cards needs several "
+              "cards; 1 visible, not run", flush=True)
+        return None
+    cards = pmesh.make_mesh()
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    res = {"cards": len(cards)}
+    try:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        for dtype in ("bfloat16", "float32"):
+            cudnn.allow_tf32 = dtype != "float32"
+            _, g1, g2 = load_chain(dtype, cards[0])
+            pp = InferencePipeline(g1, g2, 4, devices=cards)
+            with eager_only():
+                eager = InferencePipeline(g1, g2, 4, devices=cards)
+            spans = [st.split for st in pp.stages]
+            assert any(spans) and all(st.graphed for st in pp.stages)
+            got = list(pp.stream(frames))
+            want = list(eager.stream(frames))
+            for d in cards:
+                torch.cuda.synchronize(d)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), dtype
+            assert all(isinstance(p, assemble.CardPrograms)
+                       for st in pp.stages if st.split
+                       for p in st.programs.values())
+            res[dtype] = {"split": list(pp.split),
+                          "stages_over_cards": spans,
+                          "frames_equal": len(frames)}
+            pp.release()
+            del got, want
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = flags
+    print("   13d multi-card " + json.dumps(res), flush=True)
+    return res
 
 
 def nvidia_smi():
@@ -2631,6 +2977,7 @@ def main():
     recover = phase_recover(dev, wk)
     repro = phase_repro(dev, wk)
     datagen = phase_datagen(dev, wk, nvidia_smi())
+    solver_graphs = phase_solver_graphs(dev, nvidia_smi())
     parallel = phase_parallel(dev, wk)
     parallel["e"] = phase_nccl_rank(dev, wk)
 
@@ -2685,6 +3032,7 @@ def main():
                       "cli": cli_res, "quality": quality,
                       "streamed": streamed, "recover": recover,
                       "repro": repro, "datagen": datagen,
+                      "solver_graphs": solver_graphs,
                       "parallel": parallel}),
           flush=True)
     print(nvidia_smi(), flush=True)

@@ -12,7 +12,9 @@ varied-dual | moving) ``skipExisting`` (skip sims whose last frame is
 complete) ``writeHighVel`` ``retryOnError hangTimeout`` and ``device``
 (``cuda`` by default; ``cpu`` only when asked). ``compileCache`` is
 accepted and has no effect. Each sim prints one line and one JSON line of
-its timing (:func:`mpgan_torch.solver.datagen.generate_sim`).
+its timing (:func:`mpgan_torch.solver.datagen.generate_sim`), whose
+``graphed`` says whether its frames replayed CUDA graphs (on a card they
+do; on the CPU they run eagerly).
 
 With ``retryOnError N`` (or ``hangTimeout S``) a supervising parent runs
 the work as a child and restarts it up to N times
@@ -111,7 +113,8 @@ def main(argv=None) -> list[dict]:
                      obstacle=with_obs, solver=psolver, **stats)
         out.append(stats)
         print(f"sim_{sim:04d}: {frames} frames @{res_hi}^{data_dim} "
-              f"(scene={scene}, obstacle={with_obs}) in "
+              f"(scene={scene}, obstacle={with_obs}, "
+              f"graphed={stats['graphed']}) in "
               f"{stats['seconds']:.1f}s -> {sim_dir}")
         print("datagen " + json.dumps(stats), flush=True)
     return out

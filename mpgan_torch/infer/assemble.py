@@ -27,6 +27,10 @@ On one card a whole upscale is one device program, as JAX jits it
 a CUDA graph per input shape, replayed per call (:class:`GraphedProgram`),
 and each sweep replays one program over all its volumes; so does each
 stage of :class:`mpgan_torch.infer.pipeline.InferencePipeline` on one card.
+Over distinct cards a capture cannot hold the call, so each card's share of
+each pass is its own program, captured on that card (:class:`CardPrograms`),
+and the gather, transposes and velocity resizes between the passes run
+eagerly on the first card.
 The streamed assembly's chunks run eagerly (JAX jits its ``chunk_fn``):
 the host's fetch of each chunk bounds that path, and a capture made anew
 per call costs more than its replays save.
@@ -74,19 +78,28 @@ def replica(gen: torch.nn.Module, device) -> torch.nn.Module:
     return per[device][1]
 
 
-def _per_device(gen, devices, **kw):
-    """The per-slice call of ``gen``: on the replica of the slices' device
-    when a device list is given."""
+def spans_cards(devices) -> bool:
+    """Whether a device list names more than one device."""
+    return devices is not None and len({canonical(d) for d in devices}) > 1
+
+
+def _per_device(gen, devices, programs=None, **kw):
+    """The per-slice call of ``gen``. With a device list, the call of one
+    device's share ``(x, device)``: on the replica of ``gen`` on that
+    device, or, given ``programs`` (a :class:`CardPrograms`), as that
+    card's captured program."""
     if devices is None or len(devices) <= 1:
         return lambda x: gen(x, **kw)
-    return lambda x: replica(gen, x.device)(x, **kw)
+    if programs is not None:
+        return lambda x, dev: programs.run(gen, kw, x, dev)
+    return lambda x, dev: replica(gen, dev)(x, **kw)
 
 
-def _split_apply(apply_fn, x: torch.Tensor, devices) -> torch.Tensor:
-    """``apply_fn`` over ``x`` split into one contiguous block per device;
-    every launch is enqueued before any result is gathered, so the
-    devices overlap."""
-    outs = [apply_fn(part.to(dev, non_blocking=True))
+def _split_apply(share_fn, x: torch.Tensor, devices) -> torch.Tensor:
+    """``share_fn(block, device)`` over ``x`` split into one contiguous
+    block per device; every launch is enqueued before any result is
+    gathered, so the devices overlap."""
+    outs = [share_fn(part.to(dev, non_blocking=True), dev)
             for part, dev in zip(torch.tensor_split(x, len(devices)),
                                  devices) if part.shape[0]]
     return torch.cat([o.to(devices[0], non_blocking=True) for o in outs])
@@ -100,8 +113,8 @@ def apply_sliced(apply_fn, slices: torch.Tensor, chunk: int = 0,
     zero-padded to the chunk size and trimmed (every call sees one shape),
     written into one preallocated output. ``devices`` (a list, which may
     repeat a device) splits each batch over the devices; ``apply_fn`` then
-    takes slices on any of them (:func:`replica`) and the result lies on
-    the first.
+    takes ``(slices, device)``, the slices on that device (:func:`replica`),
+    and the result lies on the first.
     """
     if devices is not None and len(devices) > 1:
         devs = [canonical(d) for d in devices]
@@ -125,10 +138,13 @@ def apply_sliced(apply_fn, slices: torch.Tensor, chunk: int = 0,
 
 
 def pass1_volume(gen1, lr_vol: torch.Tensor, stage: int | None = None,
-                 chunk: int = 0, devices=None) -> torch.Tensor:
-    """(Z, Y, X, C) → intermediate (Z, Y·s, X·s, 1) via xy slices."""
-    return apply_sliced(_per_device(gen1, devices, stage=stage), lr_vol,
-                        chunk, devices)
+                 chunk: int = 0, devices=None,
+                 programs=None) -> torch.Tensor:
+    """(Z, Y, X, C) → intermediate (Z, Y·s, X·s, 1) via xy slices.
+    ``programs`` (a :class:`CardPrograms`) replays each card's share of a
+    split over distinct cards."""
+    return apply_sliced(_per_device(gen1, devices, programs, stage=stage),
+                        lr_vol, chunk, devices)
 
 
 def _with_velocity(vol: torch.Tensor, lr_vel: torch.Tensor | None,
@@ -146,38 +162,41 @@ def _with_velocity(vol: torch.Tensor, lr_vel: torch.Tensor | None,
 
 def pass2_volume(gen2, interm: torch.Tensor, lr_vel: torch.Tensor | None,
                  stage: int | None = None, chunk: int = 0,
-                 devices=None) -> torch.Tensor:
+                 devices=None, programs=None) -> torch.Tensor:
     """Intermediate (Z, Ys, Xs, 1) [+ LR velocity (Z, Y, X, 3)] →
     final (Z·s, Ys, Xs, 1) via xz slices (z-axis refinement)."""
     vol_in = _with_velocity(interm, lr_vel, [0, 2, 1], gen2.dtype)
     slices = vol_in.permute(1, 0, 2, 3)              # (Ys, Z, Xs, C)
-    out = apply_sliced(_per_device(gen2, devices, stage=stage), slices,
-                       chunk, devices)
+    out = apply_sliced(_per_device(gen2, devices, programs, stage=stage),
+                       slices, chunk, devices)
     return out.permute(1, 0, 2, 3)                   # (Zs, Ys, Xs, 1)
 
 
 def pass3_volume(gen3, vol: torch.Tensor, lr_vel: torch.Tensor | None,
-                 chunk: int = 0, devices=None) -> torch.Tensor:
+                 chunk: int = 0, devices=None,
+                 programs=None) -> torch.Tensor:
     """Constant-resolution refinement over yz slices of the full-res volume
     (Zs, Ys, Xs, 1); slice channels [d, v_w=vz, v_h=vy, v_out=vx]."""
     vol_in = _with_velocity(vol, lr_vel, [2, 1, 0], gen3.dtype)
     slices = vol_in.permute(2, 1, 0, 3)              # (Xs, Ys, Zs, C)
-    out = apply_sliced(_per_device(gen3, devices), slices, chunk, devices)
+    out = apply_sliced(_per_device(gen3, devices, programs), slices, chunk,
+                       devices)
     return out.permute(2, 1, 0, 3)
 
 
 def upscale_volume(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
                    stage: int | None = None, chunk: int = 0,
-                   gen3=None, devices=None) -> torch.Tensor:
+                   gen3=None, devices=None, programs=None) -> torch.Tensor:
     """Full multi-pass SR: (Z, Y, X, C) LR → (Z·s, Y·s, X·s, 1) HR density.
 
     lr_vol channels [d, vx, vy, vz] (or density only). Z = 1 (2D data)
     returns the pass-1 output. gen2=None → pass 1 with a nearest z-repeat
     standing in for pass 2; a pass-3 refiner still runs after it.
-    ``devices`` splits every pass's slices over a device list.
+    ``devices`` splits every pass's slices over a device list;
+    ``programs`` (a :class:`CardPrograms`) replays each card's shares.
     """
     interm = pass1_volume(gen1, lr_vol, stage=stage, chunk=chunk,
-                          devices=devices)
+                          devices=devices, programs=programs)
     if lr_vol.shape[0] == 1:
         return interm
     lr_vel = lr_vol[..., 1:4] if lr_vol.shape[-1] >= 4 else None
@@ -185,9 +204,10 @@ def upscale_volume(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
         out = interm.repeat_interleave(up_res, dim=0)
     else:
         out = pass2_volume(gen2, interm, lr_vel, stage=stage, chunk=chunk,
-                           devices=devices)
+                           devices=devices, programs=programs)
     if gen3 is not None:
-        out = pass3_volume(gen3, out, lr_vel, chunk=chunk, devices=devices)
+        out = pass3_volume(gen3, out, lr_vel, chunk=chunk, devices=devices,
+                           programs=programs)
     return out
 
 
@@ -280,13 +300,12 @@ def upscale_volume_streamed(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
 
 
 def graphable(device, devices=None) -> bool:
-    """Whether calls on ``device`` (split over ``devices``) can run as one
-    captured program: CUDA graphs exist there, and the device list names
-    one card (a list that repeats it included: one capture holds every
-    share). A capture lives on one device, and a split over distinct
-    cards copies between them."""
-    return graphed.Graph.available(device) and (
-        devices is None or len({canonical(d) for d in devices}) == 1)
+    """Whether calls on ``device`` (split over ``devices``) can replay
+    captured programs: CUDA graphs exist on every device named. On one
+    card (a list that repeats it included) one capture holds the whole
+    call; over distinct cards each card's shares are programs of their
+    own (:class:`CardPrograms`), since a capture lives on one device."""
+    return all(graphed.Graph.available(d) for d in [device, *(devices or ())])
 
 
 class GraphedProgram:
@@ -295,7 +314,9 @@ class GraphedProgram:
     the train step's :class:`~mpgan_torch.train.graphed.Program`: the
     first use runs ``fn`` eagerly (the warm-up: cuDNN's algorithm choice,
     the upsample weights, replicas), the second copies each input into the
-    program's static inputs (``xs``, contiguous, on ``device``) and
+    program's static inputs (``xs``, on ``device``, each with its input's
+    strides: cuDNN picks a convolution's kernels by its input's layout, and
+    a card's share of a split is a strided view on the first card) and
     captures, every later use copies in and replays. From the second use
     on, ``program(*xs)`` returns the graph's static output, which the next
     replay overwrites: a caller that keeps it copies it first
@@ -305,12 +326,16 @@ class GraphedProgram:
     An input may lie on the host. A replay raises ``RuntimeError`` when a
     parameter or buffer of ``modules`` no longer lies where it lay at the
     capture (a module moved or its tensors replaced: the graph would read
-    the old storage); values changed in place are read by the replay."""
+    the old storage); values changed in place are read by the replay.
+    ``generator`` (a ``torch.Generator`` of ``device``) is registered with
+    the graph: a replay draws from its state at the call, as an eager call
+    does (the caller reseeds it)."""
 
-    def __init__(self, fn, modules, device):
+    def __init__(self, fn, modules, device, generator=None):
         self.fn = fn
         self.modules = [m for m in modules if m is not None]
         self.device = canonical(device)
+        self.generator = generator
         self.uses = 0
         self.graph: graphed.Graph | None = None
         self.xs: list[torch.Tensor | None] = []
@@ -330,12 +355,13 @@ class GraphedProgram:
             return self.fn(*(None if x is None else x.to(self.device)
                              for x in xs))
         if self.graph is None:
-            self.xs = [None if x is None else torch.empty(
-                x.shape, dtype=x.dtype, device=self.device) for x in xs]
+            self.xs = [None if x is None else torch.empty_strided(
+                x.shape, x.stride(), dtype=x.dtype, device=self.device)
+                for x in xs]
             self._fill(xs)
             self.storage = self._storage()
             self.graph = graphed.Graph(lambda: self.fn(*self.xs),
-                                       self.device)
+                                       self.device, self.generator)
         elif self._storage() != self.storage:
             raise RuntimeError(
                 "a generator's parameters were moved or replaced since its "
@@ -357,9 +383,49 @@ class GraphedProgram:
         self.xs = []
 
 
+class CardPrograms:
+    """The shares of calls split over distinct cards as captured programs:
+    the counterpart of ``make_jitted_upscaler`` over a mesh, whose one
+    program spans every device. A capture lives on one card, so each
+    card's share of a pass is a :class:`GraphedProgram` of its own, one per
+    (generator, its keywords, card, share shape, dtype), run on the
+    generator's replica on that card (:func:`replica`; a new replica gets a
+    new program) and captured on that card at its second use. Each
+    replay's output is copied on the card's stream before the first card
+    gathers it (:func:`run_copied`): a device list that repeats a card
+    replays one program for several of its shares. ``modules`` are the
+    caller's generators (a pipeline stage makes a new ``CardPrograms`` for
+    a new replica); :meth:`release` frees every graph."""
+
+    def __init__(self, modules=()):
+        self.modules = list(modules)
+        self.programs: dict[tuple, GraphedProgram] = {}
+
+    def run(self, gen, kw: dict, x: torch.Tensor, device) -> torch.Tensor:
+        """``gen``'s call with keywords ``kw`` on the share ``x``, which
+        lies on ``device``, as that card's program."""
+        device = canonical(device)
+        rep = replica(gen, device)
+        key = (gen, tuple(sorted(kw.items())), device, tuple(x.shape),
+               x.dtype)
+        program = self.programs.get(key)
+        if program is None or program.modules != [rep]:
+            if program is not None:
+                program.release()
+            program = self.programs[key] = GraphedProgram(
+                lambda y: rep(y, **kw), (rep,), device)
+        return run_copied(program, x)
+
+    def release(self) -> None:
+        for program in self.programs.values():
+            program.release()
+        self.programs.clear()
+
+
 class GraphedUpscaler:
     """``lr (Z, Y, X, C) → HR (Z·s, Y·s, X·s, 1)`` over a pass chain, one
-    :class:`GraphedProgram` per ``(input shape, dtype)``
+    :class:`GraphedProgram` per ``(input shape, dtype)``, or over distinct
+    cards one :class:`CardPrograms` per ``(input shape, dtype)``
     (:func:`make_graphed_upscaler`)."""
 
     def __init__(self, gen1, gen2, up_res: int, stage: int | None = None,
@@ -367,21 +433,30 @@ class GraphedUpscaler:
         self.device = canonical(next(gen1.parameters()).device)
         if not graphable(self.device, devices):
             raise ValueError(
-                f"a graphed upscaler runs on one CUDA card; got {self.device}"
-                f" split over {devices}")
+                "a graphed upscaler captures each program on one CUDA card; "
+                f"got {self.device} split over {devices}")
         self.modules = (gen1, gen2, gen3)
+        self.split = spans_cards(devices)
 
-        def fn(lr_vol):
+        def fn(lr_vol, programs=None):
             return upscale_volume(gen1, gen2, lr_vol, up_res, stage=stage,
-                                  chunk=chunk, gen3=gen3, devices=devices)
+                                  chunk=chunk, gen3=gen3, devices=devices,
+                                  programs=programs)
         self.fn = fn
         # least recently used first
-        self.programs: OrderedDict[tuple, GraphedProgram] = OrderedDict()
+        self.programs: OrderedDict[tuple, GraphedProgram | CardPrograms] = \
+            OrderedDict()
 
     def __call__(self, lr_vol) -> torch.Tensor:
         lr_vol = torch.as_tensor(lr_vol)
+        key = (tuple(lr_vol.shape), lr_vol.dtype)
+        if self.split:
+            programs = cached_program(self.programs, key, CardPrograms)
+            with torch.inference_mode():
+                # the gather makes a fresh tensor per call
+                return self.fn(lr_vol.to(self.device), programs)
         program = cached_program(
-            self.programs, (tuple(lr_vol.shape), lr_vol.dtype),
+            self.programs, key,
             lambda: GraphedProgram(self.fn, self.modules, self.device))
         with torch.inference_mode():
             # a server fetches a result outside its device lock, while the
@@ -389,10 +464,11 @@ class GraphedUpscaler:
             return run_copied(program, lr_vol)
 
 
-def cached_program(programs: OrderedDict, key, make) -> GraphedProgram:
-    """The program of ``key`` in ``programs`` (least recently used first),
-    made by ``make()`` when absent and made the most recent; beyond
-    ``MAX_PROGRAMS`` the least recently used one's graph and memory pool
+def cached_program(programs: OrderedDict, key, make):
+    """The program of ``key`` in ``programs`` (least recently used first;
+    a :class:`GraphedProgram` or a :class:`CardPrograms`), made by
+    ``make()`` when absent and made the most recent; beyond
+    ``MAX_PROGRAMS`` the least recently used one's graphs and memory pools
     are released and it is dropped."""
     program = programs.pop(key, None)
     if program is None:
@@ -428,23 +504,33 @@ def make_graphed_upscaler(gen1, gen2, up_res: int, stage: int | None = None,
     overwritten by a later call. The cache keeps the ``MAX_PROGRAMS`` (2)
     most recently used shapes; using a third releases the least recently
     used one's graph and memory pool (2.33 GB each at 64³→256³ bf16 on
-    an H100), and that shape starts again from an eager use. ``devices`` may repeat the generators' card (one capture holds
-    both shares); distinct cards raise ``ValueError``, since a capture
-    lives on one device: there :func:`upscale_volume` runs eagerly."""
+    an H100), and that shape starts again from an eager use. ``devices``
+    may repeat the generators' card (one capture holds both shares). Over
+    distinct cards each card's share of each pass is its own program
+    (:class:`CardPrograms`, the shapes of ``MAX_PROGRAMS`` inputs kept per
+    card), and the gather and the steps between the passes run eagerly on
+    the first card; each call returns a fresh tensor there too. A device
+    without CUDA graphs (the CPU) raises ``ValueError``."""
     return GraphedUpscaler(gen1, gen2, up_res, stage=stage, chunk=chunk,
                            gen3=gen3, devices=devices)
 
 
 def _sweep(fn, lr_vols: torch.Tensor, modules, devices) -> torch.Tensor:
-    """``fn`` over each volume of ``lr_vols`` under inference mode, each
-    result cast to float32 into one output tensor allocated once (as the
-    JAX package's single-allocation ``lax.map``: a list and a stack would
-    hold the sweep twice). Where it can (:func:`graphable`), ``fn`` is one
-    :class:`GraphedProgram` replayed over every volume, since they share
-    one shape (JAX's one ``jit(lax.map)``), released at the end."""
-    program = (GraphedProgram(fn, modules, lr_vols.device)
-               if graphable(lr_vols.device, devices) else None)
-    one = program or fn
+    """``fn(volume, programs=None)`` over each volume of ``lr_vols`` under
+    inference mode, each result cast to float32 into one output tensor
+    allocated once (as the JAX package's single-allocation ``lax.map``: a
+    list and a stack would hold the sweep twice). Where it can
+    (:func:`graphable`), ``fn`` replays, since the volumes share one shape
+    (JAX's one ``jit(lax.map)``): on one card as one
+    :class:`GraphedProgram`, over distinct cards each card's shares as
+    :class:`CardPrograms`; released at the end."""
+    program, one = None, fn
+    if graphable(lr_vols.device, devices):
+        if spans_cards(devices):
+            program = CardPrograms()
+            one = lambda v: fn(v, program)  # noqa: E731
+        else:
+            program = one = GraphedProgram(fn, modules, lr_vols.device)
     n = lr_vols.shape[0]
     try:
         with torch.inference_mode():
@@ -469,9 +555,9 @@ def precompute_intermediates(gen1, lr_vols: torch.Tensor,
     """Frozen-G1 sweep over a dataset: (N, Z, Y, X, C) LR volumes →
     (N, Z, Y·s, X·s, 1) float32 intermediate volumes, the pass-2 training
     inputs when G2 trains on G1 outputs (JAX ``:245-261``)."""
-    return _sweep(lambda v: pass1_volume(gen1, v, stage=stage, chunk=chunk,
-                                         devices=devices), lr_vols, (gen1,),
-                  devices)
+    return _sweep(lambda v, programs=None: pass1_volume(
+        gen1, v, stage=stage, chunk=chunk, devices=devices,
+        programs=programs), lr_vols, (gen1,), devices)
 
 
 def precompute_finals(gen1, gen2, lr_vols: torch.Tensor, up_res: int,
@@ -479,9 +565,9 @@ def precompute_finals(gen1, gen2, lr_vols: torch.Tensor, up_res: int,
     """Frozen two-pass sweep: (N, Z, Y, X, C) LR → (N, Z·s, Y·s, X·s, 1)
     float32 full-res volumes, the pass-3 training inputs (JAX
     ``:264-275``)."""
-    return _sweep(lambda v: upscale_volume(gen1, gen2, v, up_res,
-                                           chunk=chunk, devices=devices),
-                  lr_vols, (gen1, gen2), devices)
+    return _sweep(lambda v, programs=None: upscale_volume(
+        gen1, gen2, v, up_res, chunk=chunk, devices=devices,
+        programs=programs), lr_vols, (gen1, gen2), devices)
 
 
 def psnr_volume(fake, real, peak: float = 1.0) -> float:

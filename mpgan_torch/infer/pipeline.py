@@ -17,17 +17,20 @@ hand its memory out before the reader is done. Stages may share a device
 (``[cuda:0] * 2``): their streams still overlap on the one card. On the CPU
 the stages run one after another.
 
-A stage replays CUDA graphs, the counterpart of JAX's jitted ``fn1``,
-``fn2`` and ``fn3``, where its group is one card (a list that repeats it
-included, :func:`mpgan_torch.infer.assemble.graphable`), whether or not
-the other stages share that card: it runs its pass as a
+A stage replays CUDA graphs on cards, the counterpart of JAX's jitted
+``fn1``, ``fn2`` and ``fn3`` (:func:`mpgan_torch.infer.assemble.graphable`).
+Where its group is one card (a list that repeats it included), whether or
+not the other stages share that card, it runs its pass as a
 :class:`~mpgan_torch.infer.assemble.GraphedProgram` per input shape and
 dtype (eager at a shape's first frame, captured on its own card at its
 second, replayed after; ``MAX_PROGRAMS`` kept), on its own stream. Each
 replay's output is copied on that stream before the handoff, so that the
 stage's next replay cannot overwrite a frame that the next stage still
-reads. A stage spread over several distinct cards runs eagerly, as a
-capture lives on one device.
+reads. A stage spread over several distinct cards runs its pass eagerly
+on its first card with each card's share of the slices replayed as that
+card's program (:class:`~mpgan_torch.infer.assemble.CardPrograms`, one
+per input shape and dtype, ``MAX_PROGRAMS`` kept), as a capture lives on
+one device.
 
 Pass 2 runs its convolutions on the full-resolution xy grid, about up_res×
 pass 1's work per frame (pass 3 likewise), so :func:`default_split`
@@ -71,8 +74,8 @@ def default_split(n_devices: int, n_stages: int, up_res: int
 
 class _Stage:
     """One pass on a device group: its devices, its pass function
-    ``fn(gen, *inputs)``, on a card its own stream on the group's first
-    device, and where the group is one card its graphed programs."""
+    ``fn(gen, *inputs, programs=None)``, on a card its own stream on the
+    group's first device, and on cards its graphed programs."""
 
     def __init__(self, devices: list[torch.device], fn):
         self.devices = devices
@@ -81,15 +84,17 @@ class _Stage:
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self.graphed = assemble.graphable(self.device, devices)
-        # (input shapes and dtypes) → program, least recently used first
+        self.split = assemble.spans_cards(devices)
+        # (input shapes and dtypes) → program (CardPrograms where the group
+        # spans cards), least recently used first
         self.programs: OrderedDict = OrderedDict()
 
     def run(self, gen, *xs):
         """The stage's pass over ``xs`` with ``gen`` (its replica on this
-        stage's device); graphed, a replay's output is copied out on the
-        current stream (call inside :meth:`context`). A program holds the
-        replica it captured: a new replica (the generator's parameters
-        changed in place) gets a new program."""
+        stage's device); graphed on one card, a replay's output is copied
+        out on the current stream (call inside :meth:`context`). A program
+        holds the replica it captured: a new replica (the generator's
+        parameters changed in place) gets a new program."""
         if not self.graphed:
             return self.fn(gen, *xs)
         key = tuple(None if x is None else (tuple(x.shape), x.dtype)
@@ -98,6 +103,10 @@ class _Stage:
         if program is not None and program.modules != [gen]:
             program.release()
             del self.programs[key]
+        if self.split:
+            programs = assemble.cached_program(
+                self.programs, key, lambda: assemble.CardPrograms((gen,)))
+            return self.fn(gen, *xs, programs=programs)
         program = assemble.cached_program(
             self.programs, key, lambda: assemble.GraphedProgram(
                 lambda *ys: self.fn(gen, *ys), (gen,), self.device))
@@ -144,9 +153,9 @@ class InferencePipeline:
     Produces the volumes :func:`mpgan_torch.infer.assemble.upscale_volume`
     produces; only the placement differs. ``devices`` defaults to every
     visible card (a list may repeat a device); ``split`` gives the devices
-    per stage (:func:`default_split` when None). A stage on one card
-    replays CUDA graphs (module docstring); :meth:`release` frees the
-    graphs and their pools.
+    per stage (:func:`default_split` when None). A stage on cards replays
+    CUDA graphs (module docstring); :meth:`release` frees the graphs and
+    their pools.
     """
 
     def __init__(self, gen1, gen2, up_res: int,
@@ -171,13 +180,15 @@ class InferencePipeline:
         offs = [sum(split[:i]) for i in range(self.n_stages + 1)]
         groups = [devices[offs[i]:offs[i + 1]] for i in range(self.n_stages)]
         fns = [
-            lambda g, lr: assemble.pass1_volume(
-                g, lr, stage=stage, chunk=chunk, devices=groups[0]),
-            lambda g, interm, vel: assemble.pass2_volume(
+            lambda g, lr, programs=None: assemble.pass1_volume(
+                g, lr, stage=stage, chunk=chunk, devices=groups[0],
+                programs=programs),
+            lambda g, interm, vel, programs=None: assemble.pass2_volume(
                 g, interm, vel, stage=stage, chunk=chunk,
-                devices=groups[1]),
-            lambda g, vol, vel: assemble.pass3_volume(
-                g, vol, vel, chunk=chunk, devices=groups[2])]
+                devices=groups[1], programs=programs),
+            lambda g, vol, vel, programs=None: assemble.pass3_volume(
+                g, vol, vel, chunk=chunk, devices=groups[2],
+                programs=programs)]
         self.stages = [_Stage(group, fn) for group, fn in zip(groups, fns)]
         self.gens = [gen1, gen2, gen3][:self.n_stages]
         self.up_res, self.chunk, self.stage = up_res, chunk, stage

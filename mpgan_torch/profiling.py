@@ -34,7 +34,8 @@ Profiles (torch.profiler, CPU + CUDA activities) after warm-up:
   unprofiled run.
 
 Prints one JSON object, and also writes it to ``out.json`` when a path is
-given. Needs a card; imports no JAX.
+given. Needs a card; imports no JAX. :func:`solver_profile` (a solver
+step's busy share and host launches) serves ``chip_smoke.py`` phase 12d.
 """
 
 import contextlib
@@ -181,28 +182,44 @@ def _launches(avgs, n: int) -> dict[str, float]:
             and LAUNCH_CALLS.fullmatch(e.key)}
 
 
-def infer_profile(frame, n: int) -> dict:
-    """Profile ``n`` calls of ``frame()``, one upscaled frame each (after
-    its warm-up; a graphed upscaler's program captured) → wall and kernel
-    ms per frame, the device busy share, host launches per frame (by call
-    and their sum) and device activities per frame."""
+def _calls_profile(fn, n: int, per: str) -> dict:
+    """Profile ``n`` calls of ``fn()`` → wall and kernel ms per call, the
+    device busy share, host launches per call (by name and their sum) and
+    device activities per call, the keys named per ``per``."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            frame()
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     avgs = prof.key_averages()
     kernels, _, kern_us = _tables(avgs)
     launches = _launches(avgs, n)
-    return {"frames": n, "wall_ms_per_frame": wall_us / n / 1e3,
-            "kernel_ms_per_frame": kern_us / n / 1e3,
+    return {f"{per}s": n, f"wall_ms_per_{per}": wall_us / n / 1e3,
+            f"kernel_ms_per_{per}": kern_us / n / 1e3,
             "device_busy_share": kern_us / wall_us,
-            "host_launches_per_frame": sum(launches.values()),
+            f"host_launches_per_{per}": sum(launches.values()),
             "host_launches_by_call": launches,
-            "device_activities_per_frame": sum(r[2] for r in kernels) / n}
+            f"device_activities_per_{per}": sum(r[2] for r in kernels) / n}
+
+
+def infer_profile(frame, n: int) -> dict:
+    """Profile ``n`` calls of ``frame()``, one upscaled frame each (after
+    its warm-up; a graphed upscaler's program captured) → wall and kernel
+    ms per frame, the device busy share, host launches per frame (by call
+    and their sum) and device activities per frame."""
+    return _calls_profile(frame, n, "frame")
+
+
+def solver_profile(step, n: int) -> dict:
+    """Profile ``n`` calls of ``step()``, one solver step (or datagen
+    frame) each, after its warm-up (a graphed step's program captured) →
+    wall and kernel ms per step, the device busy share, host launches per
+    step (by call and their sum) and device activities per step: what a
+    graph removes from the eager step's host side."""
+    return _calls_profile(step, n, "step")
 
 
 def train_profile(tr, it: int, n: int):

@@ -301,8 +301,8 @@ def make_upscaler(chain, device=None, up_res: int = 4, chunk: int = 0):
     one captured program per request shape, eager at a shape's first
     request and replayed from its second on, each result a fresh tensor
     (JAX ``mpgan_tpu/infer/load.py:133-144`` jits the upscaler). With
-    several cards every visible card takes a share of each pass's slices
-    and the upscaler runs eagerly, as a CUDA graph lives on one card
+    several cards every visible card takes a share of each pass's slices,
+    each card's share a captured program of its own
     (``CUDA_VISIBLE_DEVICES`` limits them); on the CPU it runs eagerly."""
     from mpgan_torch.device import resolve_device
     from mpgan_torch.infer import assemble
@@ -316,16 +316,12 @@ def make_upscaler(chain, device=None, up_res: int = 4, chunk: int = 0):
         graphed = assemble.make_graphed_upscaler(
             gen1, gen2, up_res, chunk=chunk, gen3=gen3, devices=devices)
         return lambda lr: graphed(np.asarray(lr, dtype=np.float32))
-    if devices is not None:
-        print(f"  the upscaler runs eagerly over {len(devices)} cards: a "
-              "CUDA graph lives on one card")
 
     def upscale(lr: np.ndarray) -> torch.Tensor:
         lr_t = torch.tensor(np.asarray(lr, dtype=np.float32), device=dev)
         with torch.inference_mode():
             return assemble.upscale_volume(gen1, gen2, lr_t, up_res,
-                                           chunk=chunk, gen3=gen3,
-                                           devices=devices)
+                                           chunk=chunk, gen3=gen3)
 
     return upscale
 

@@ -9,13 +9,25 @@ the device, and each frame writes ``density_high_%04d.uni`` /
 never simulated apart. Writes go through :mod:`mpgan_torch.io.uni` (gzip
 level 1, atomic, plain TypeVec3 velocities, mantaflow flag values).
 
+Per simulation two device programs run, as JAX jits them
+(``mpgan_tpu/solver/datagen.py:158-172``, the 2D ones ``:235-247``):
+``frame_step`` (the inflow noise and the solver step) and
+``frame_outputs`` (the downsampled LR fields). On a card each is a CUDA
+graph (:class:`~mpgan_torch.infer.assemble.GraphedProgram`: eager at its
+first use, captured at its second, replayed after; released at the sim's
+end), elsewhere the same functions run eagerly; both ways write the same
+bytes. The moving obstacle's mask is built inside ``frame_step`` from its
+centre, a 0-d input filled per frame (:class:`Orbit`).
+
 Random draws: a scene's parameters come from a CPU ``torch.Generator``
 seeded with the sim's seed (``randSeed + sim``), each frame's inflow noise
-from a generator on the device seeded with (seed, frame index)
-(:func:`mpgan_torch.solver.noise.frame_generator`). JAX's threefry stream
-is not reproduced: one seed gives a different scene in each package, drawn
-from the same distribution. :func:`generate_sim` takes an injected scene
-and per-frame inflow so that a test can feed it the JAX package's draws.
+from one generator on the device per sim, reseeded before each frame with
+(seed, frame index) (:func:`mpgan_torch.solver.noise.frame_seed`) and
+registered with the graph, so that a replay draws what an eager frame
+draws. JAX's threefry stream is not reproduced: one seed gives a
+different scene in each package, drawn from the same distribution.
+:func:`generate_sim` takes an injected scene and per-frame inflow so that
+a test can feed it the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -23,12 +35,14 @@ from __future__ import annotations
 import math
 import os
 import time
+from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from mpgan_torch.device import resolve_device
+from mpgan_torch.infer import assemble
 from mpgan_torch.io import uni
 from mpgan_torch.ops.resample import downsample_2d, downsample_3d
 from mpgan_torch.solver import noise, smoke, smoke2d
@@ -40,12 +54,45 @@ SCENES = ("plume", "varied", "varied-dual", "moving")
 class Scene(NamedTuple):
     """A simulation's set-up: the initial state, the inflow mask, the
     solver parameters, the inflow strength and, for the moving family,
-    ``solid_at(t)`` → the (Z, Y, X, 1) obstacle mask of step t."""
+    ``solid_at(t)`` → the (Z, Y, X, 1) obstacle mask of step t (an
+    :class:`Orbit`, or any function, such as a test's injected masks)."""
     state: smoke.SmokeState
     inflow: torch.Tensor
     params: smoke.SmokeParams
     strength: float = 1.0
     solid_at: Callable[[int], torch.Tensor] | None = None
+
+
+@dataclass(frozen=True)
+class Orbit:
+    """The moving family's obstacle: a sphere of radius ``r`` centred at
+    (cz, cy, cx(t)) of the domain, cx(t) = 0.5 + amp·sin(2π t / period +
+    phase). ``orbit(t)`` → the (Z, Y, X, 1) mask of step t on ``device``."""
+    res: int
+    cz: float
+    cy: float
+    r: float
+    amp: float
+    phase: float
+    period: float
+    device: torch.device | None = None
+
+    def cx(self, t: int) -> float:
+        """The centre's x at step t, in float32 on the host as the JAX
+        package traces it."""
+        t32 = torch.tensor(float(t), dtype=torch.float32)
+        return float(0.5 + self.amp * torch.sin(
+            2.0 * math.pi * t32 / self.period + self.phase))
+
+    def mask(self, cx: torch.Tensor) -> torch.Tensor:
+        """The mask about the centre x ``cx``, a 0-d float32 tensor (a
+        graphed frame's static input), on ``cx``'s device."""
+        return smoke.sphere_mask(self.res, self.res, self.res,
+                                 (self.cz, self.cy, cx), self.r, cx.device)
+
+    def __call__(self, t: int) -> torch.Tensor:
+        return self.mask(torch.tensor(self.cx(t), dtype=torch.float32,
+                                      device=self.device))
 
 
 def _uniform(gen: torch.Generator, lo: float, hi: float) -> float:
@@ -91,15 +138,7 @@ def varied_plume_scene(gen: torch.Generator, res: int, scene: str = "varied",
         amp = _uniform(gen, 0.14, 0.22)
         phase = _uniform(gen, 0.0, 6.28)
         period = _uniform(gen, 30.0, 60.0)
-
-        def solid_at(t):
-            # the orbit in float32, as the JAX package traces it
-            t32 = torch.tensor(float(t), dtype=torch.float32)
-            cx = 0.5 + amp * torch.sin(2.0 * math.pi * t32 / period + phase)
-            return smoke.sphere_mask(res, res, res, (ob_cz, ob_cy,
-                                                     cx.to(device)),
-                                     ob_r, device)
-
+        solid_at = Orbit(res, ob_cz, ob_cy, ob_r, amp, phase, period, device)
         solid = solid_at(0)
     else:
         n_obs = int(torch.randint(0, 3, (), generator=gen))
@@ -192,6 +231,81 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu").numpy()
 
 
+class Frames:
+    """A sim's two device programs, ``frame_step`` and ``frame_outputs``
+    (module docstring). ``advance(state, t)`` → the state after frame
+    ``t`` (the inflow noise, the moving obstacle and the solver step);
+    ``outputs(state)`` → the LR density and velocity. ``step_fn(*inputs)``
+    → the new state's fields, where ``inputs(state, t)`` are its inputs
+    for frame t and its noise is drawn from ``generator``;
+    ``outputs_fn(density, velocity)`` → the LR fields. On a card each is a
+    :class:`~mpgan_torch.infer.assemble.GraphedProgram`, ``generator``
+    registered with the step's (``graphed``); elsewhere the function
+    itself. Each frame reseeds the generator with its seed first, as a
+    fresh :func:`~mpgan_torch.solver.noise.frame_generator` is seeded. A
+    graphed frame's state is the graph's output, which the next frame
+    overwrites; :meth:`release` frees the graphs."""
+
+    def __init__(self, step_fn, inputs, outputs_fn, seed: int, device,
+                 generator: torch.Generator):
+        self.inputs, self.seed, self.generator = inputs, seed, generator
+        self.graphed = assemble.graphable(device)
+        if self.graphed:
+            step_fn = assemble.GraphedProgram(step_fn, (), device, generator)
+            outputs_fn = assemble.GraphedProgram(outputs_fn, (), device)
+        self.step_fn, self.outputs_fn = step_fn, outputs_fn
+
+    def advance(self, state, t: int):
+        self.generator.manual_seed(noise.frame_seed(self.seed, t))
+        return type(state)(*self.step_fn(*self.inputs(state, t)))
+
+    def outputs(self, state):
+        return self.outputs_fn(state.density, state.velocity)
+
+    def release(self) -> None:
+        if self.graphed:
+            self.step_fn.release()
+            self.outputs_fn.release()
+
+
+def scene_frames(sc: Scene, seed: int, up_res: int, device,
+                 inflow_at: Callable[[int], torch.Tensor] | None = None
+                 ) -> Frames:
+    """The :class:`Frames` of a 3D scene on ``device`` (its tensors
+    there). A moving :class:`Orbit` obstacle is built inside the step from
+    its centre, a 0-d input filled per frame; any other ``solid_at(t)``
+    (a test's injected masks) and ``inflow_at(t)`` fill static inputs."""
+    inflow = sc.inflow.to(device)
+    orbit = sc.solid_at if isinstance(sc.solid_at, Orbit) else None
+    cx = torch.zeros((), device=device) if orbit is not None else None
+    gen = torch.Generator(device=device)
+
+    def frame_step(density, velocity, solid, cx, src):
+        if cx is not None:
+            solid = orbit.mask(cx)
+        if src is None:
+            src = noise.inflow_density(inflow, gen, strength=sc.strength)
+        return tuple(smoke.step(smoke.SmokeState(density, velocity, solid),
+                                sc.params, src, inflow))
+
+    def inputs(state, t):
+        solid = state.solid
+        if orbit is not None:
+            cx.fill_(orbit.cx(t))
+            solid = None
+        elif sc.solid_at is not None:
+            solid = sc.solid_at(t).to(device)
+        src = inflow_at(t).to(device) if inflow_at is not None else None
+        return state.density, state.velocity, solid, cx, src
+
+    def frame_outputs(density, velocity):
+        # LR velocities in LR cell units (the models train on those)
+        return (downsample_3d(density, up_res),
+                downsample_3d(velocity, up_res) / up_res)
+
+    return Frames(frame_step, inputs, frame_outputs, seed, device, gen)
+
+
 def generate_sim(sim_dir: str, seed: int, res_hi: int, up_res: int,
                  frames: int, warmup: int = 8, with_obstacle: bool = False,
                  save_flags: bool = False, pressure_solver: str = "jacobi",
@@ -200,7 +314,8 @@ def generate_sim(sim_dir: str, seed: int, res_hi: int, up_res: int,
                  inflow_at: Callable[[int], torch.Tensor] | None = None
                  ) -> dict:
     """Run one simulation on ``device`` (the card unless the CPU is asked
-    for) and write its LR/HR ``.uni`` pairs per frame; → timing stats.
+    for) and write its LR/HR ``.uni`` pairs per frame; → timing stats,
+    ``graphed`` among them.
 
     ``injected`` replaces the drawn scene and ``inflow_at(t)`` the noise of
     step t (both for tests)."""
@@ -210,53 +325,49 @@ def generate_sim(sim_dir: str, seed: int, res_hi: int, up_res: int,
     sc = injected if injected is not None else make_scene(
         seed, res_hi, scene, with_obstacle, pressure_solver, dev)
     state = smoke.SmokeState(*(t.to(dev) for t in sc.state))
-    inflow = sc.inflow.to(dev)
-
-    def frame_step(state, t):
-        if sc.solid_at is not None:
-            state = state._replace(solid=sc.solid_at(t).to(dev))
-        src = (inflow_at(t).to(dev) if inflow_at is not None else
-               noise.time_varying_inflow(seed, inflow, t,
-                                         strength=sc.strength))
-        return smoke.step(state, sc.params, src, inflow)
-
+    programs = scene_frames(sc, seed, up_res, dev, inflow_at)
     clock = _FrameClock(dev)
-    for t in range(warmup):
-        state = frame_step(state, t)
-    for f in range(frames):
-        clock.start()
-        state = frame_step(state, warmup + f)
-        # LR velocities in LR cell units (the models train on those)
-        dens_lo = downsample_3d(state.density, up_res)
-        vel_lo = downsample_3d(state.velocity, up_res) / up_res
-        clock.computed()
-        path = os.path.join(sim_dir, "{}_{:04d}.uni")
-        uni.write_density(path.format("density_high", f),
-                          _host(state.density)[..., 0])
-        if write_high_vel:
-            # nothing in training or evaluation reads the HR velocity, but
-            # the reference's datagen writes it, so it stays the default
-            uni.write_velocity(path.format("velocity_high", f),
-                               _host(state.velocity))
-        uni.write_density(path.format("density_low", f),
-                          _host(dens_lo)[..., 0])
-        uni.write_velocity(path.format("velocity_low", f), _host(vel_lo))
-        if save_flags:
-            # mantaflow FlagGrid values: TypeFluid = 1, TypeObstacle = 2
-            flags = 1 + _host(state.solid).astype(np.int32)
-            uni.writeUni(path.format("flags", f),
-                         uni.make_header(flags, grid_type=uni.TYPE_FLAGS),
-                         flags)
-        clock.written()
-        _frame_progress(f)
-    return clock.stats(warmup + frames, time.perf_counter() - t_start)
+    try:
+        for t in range(warmup):
+            state = programs.advance(state, t)
+        for f in range(frames):
+            clock.start()
+            state = programs.advance(state, warmup + f)
+            dens_lo, vel_lo = programs.outputs(state)
+            clock.computed()
+            path = os.path.join(sim_dir, "{}_{:04d}.uni")
+            uni.write_density(path.format("density_high", f),
+                              _host(state.density)[..., 0])
+            if write_high_vel:
+                # nothing in training or evaluation reads the HR velocity,
+                # but the reference's datagen writes it, so it stays the
+                # default
+                uni.write_velocity(path.format("velocity_high", f),
+                                   _host(state.velocity))
+            uni.write_density(path.format("density_low", f),
+                              _host(dens_lo)[..., 0])
+            uni.write_velocity(path.format("velocity_low", f),
+                               _host(vel_lo))
+            if save_flags:
+                # mantaflow FlagGrid values: TypeFluid = 1, TypeObstacle = 2
+                flags = 1 + _host(state.solid).astype(np.int32)
+                uni.writeUni(path.format("flags", f),
+                             uni.make_header(flags,
+                                             grid_type=uni.TYPE_FLAGS),
+                             flags)
+            clock.written()
+            _frame_progress(f)
+    finally:
+        programs.release()
+    return dict(clock.stats(warmup + frames, time.perf_counter() - t_start),
+                graphed=programs.graphed)
 
 
 def generate_sim_2d(sim_dir: str, seed: int, res_hi: int, up_res: int,
                     frames: int, warmup: int = 8, with_obstacle: bool = False,
                     pressure_solver: str = "jacobi", device=None) -> dict:
     """A 2D scene (``dataDim 2``): writes (1, Y, X) ``.uni`` pairs, the
-    velocities with vz = 0; → timing stats."""
+    velocities with vz = 0; → timing stats, ``graphed`` among them."""
     dev = resolve_device(device)
     t_start = time.perf_counter()
     os.makedirs(sim_dir, exist_ok=True)
@@ -270,37 +381,48 @@ def generate_sim_2d(sim_dir: str, seed: int, res_hi: int, up_res: int,
     params = smoke.SmokeParams(dt=0.5, buoyancy=2e-2, vorticity_eps=0.1,
                                jacobi_iters=50, maccormack=True,
                                pressure_solver=pressure_solver)
+    gen = torch.Generator(device=dev)
 
-    def frame_step(state, t):
-        n = noise.value_noise_3d((1, res_hi, res_hi),
-                                 noise.frame_generator(seed, t, dev))[0]
+    def frame_step(density, velocity, solid):
+        n = noise.value_noise_3d((1, res_hi, res_hi), gen)[0]
         src = (0.5 + 0.5 * n)[..., None] * inflow
-        return smoke2d.step(state, params, src, inflow)
+        return tuple(smoke2d.step(smoke2d.Smoke2DState(density, velocity,
+                                                       solid),
+                                  params, src, inflow))
+
+    def frame_outputs(density, velocity):
+        return (downsample_2d(density, up_res),
+                downsample_2d(velocity, up_res) / up_res)
 
     def with_vz(v):                       # (Y, X, 2) → (1, Y, X, 3)
         return np.concatenate([v, np.zeros_like(v[..., :1])], -1)[None]
 
+    programs = Frames(frame_step, lambda state, t: tuple(state),
+                      frame_outputs, seed, dev, gen)
     clock = _FrameClock(dev)
-    for t in range(warmup):
-        state = frame_step(state, t)
-    for f in range(frames):
-        clock.start()
-        state = frame_step(state, warmup + f)
-        d_lo = downsample_2d(state.density, up_res)
-        v_lo = downsample_2d(state.velocity, up_res) / up_res
-        clock.computed()
-        path = os.path.join(sim_dir, "{}_{:04d}.uni")
-        uni.write_density(path.format("density_high", f),
-                          _host(state.density)[None, ..., 0])
-        uni.write_velocity(path.format("velocity_high", f),
-                           with_vz(_host(state.velocity)))
-        uni.write_density(path.format("density_low", f),
-                          _host(d_lo)[None, ..., 0])
-        uni.write_velocity(path.format("velocity_low", f),
-                           with_vz(_host(v_lo)))
-        clock.written()
-        _frame_progress(f)
-    return clock.stats(warmup + frames, time.perf_counter() - t_start)
+    try:
+        for t in range(warmup):
+            state = programs.advance(state, t)
+        for f in range(frames):
+            clock.start()
+            state = programs.advance(state, warmup + f)
+            d_lo, v_lo = programs.outputs(state)
+            clock.computed()
+            path = os.path.join(sim_dir, "{}_{:04d}.uni")
+            uni.write_density(path.format("density_high", f),
+                              _host(state.density)[None, ..., 0])
+            uni.write_velocity(path.format("velocity_high", f),
+                               with_vz(_host(state.velocity)))
+            uni.write_density(path.format("density_low", f),
+                              _host(d_lo)[None, ..., 0])
+            uni.write_velocity(path.format("velocity_low", f),
+                               with_vz(_host(v_lo)))
+            clock.written()
+            _frame_progress(f)
+    finally:
+        programs.release()
+    return dict(clock.stats(warmup + frames, time.perf_counter() - t_start),
+                graphed=programs.graphed)
 
 
 def with_obstacle(sim: int, obstacles_every: int) -> bool:

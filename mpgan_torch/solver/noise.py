@@ -50,24 +50,38 @@ def value_noise_3d(shape: tuple[int, int, int], generator=None,
     return out / total
 
 
-def frame_generator(seed: int, t: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, frame index): each
-    frame's inflow noise is fresh and reproducible, as JAX's
-    ``fold_in(key, t)`` makes it."""
+def frame_seed(seed: int, t: int) -> int:
+    """The seed of frame ``t``'s noise: fresh and reproducible per (seed,
+    frame index), as JAX's ``fold_in(key, t)`` makes it."""
     state = np.random.SeedSequence([seed, t]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0] >> 1))
+    return int(state[0] >> 1)
+
+
+def frame_generator(seed: int, t: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with :func:`frame_seed`. A graphed
+    frame draws from one generator per sim instead, reseeded with the same
+    seed before each frame (:mod:`mpgan_torch.solver.datagen`): it draws
+    the same values."""
+    return torch.Generator(device=device).manual_seed(frame_seed(seed, t))
+
+
+def inflow_density(mask: torch.Tensor, generator=None, base_res: int = 4,
+                   strength: float = 1.0, coarse=None) -> torch.Tensor:
+    """(Z, Y, X, 1) noise-modulated inflow density over ``mask``, the
+    octaves' grids drawn from ``generator`` (or injected as ``coarse``)."""
+    z, y, x, _ = mask.shape
+    n = value_noise_3d((z, y, x), generator, base_res=base_res, coarse=coarse,
+                       device=mask.device)
+    n = 0.5 + 0.5 * n  # keep the source dense
+    return (strength * n)[..., None] * mask
 
 
 def time_varying_inflow(seed: int, mask: torch.Tensor, t: int,
                         base_res: int = 4, strength: float = 1.0,
                         coarse=None) -> torch.Tensor:
-    """(Z, Y, X, 1) noise-modulated inflow density for frame ``t``: fresh
-    noise per frame keeps the plume from being a steady column. ``coarse``
-    injects the octaves' grids (else drawn from :func:`frame_generator`)."""
-    z, y, x, _ = mask.shape
+    """The inflow density of frame ``t``: fresh noise per frame keeps the
+    plume from being a steady column. ``coarse`` injects the octaves' grids
+    (else drawn from :func:`frame_generator`)."""
     gen = (frame_generator(seed, t, mask.device) if coarse is None
            else None)
-    n = value_noise_3d((z, y, x), gen, base_res=base_res, coarse=coarse,
-                       device=mask.device)
-    n = 0.5 + 0.5 * n  # keep the source dense
-    return (strength * n)[..., None] * mask
+    return inflow_density(mask, gen, base_res, strength, coarse)

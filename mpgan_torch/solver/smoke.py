@@ -224,7 +224,10 @@ def step(state: SmokeState, params: SmokeParams,
          inflow_density: torch.Tensor | None = None,
          inflow_mask: torch.Tensor | None = None) -> SmokeState:
     """One solver step. ``inflow_density`` (Z, Y, X, 1) is blended in where
-    ``inflow_mask`` (Z, Y, X, 1 in [0, 1]) is positive."""
+    ``inflow_mask`` (Z, Y, X, 1 in [0, 1]) is positive. The plain
+    function; as a CUDA graph per (shape, params, inflow given), the
+    counterpart of JAX's jitted step:
+    :class:`mpgan_torch.solver.graphed.GraphedStep`."""
     dens, vel, solid = state
     if params.maccormack:
         dens = advect_3d_maccormack(dens, vel, params.dt)

@@ -89,6 +89,8 @@ def vorticity_confinement(vel: torch.Tensor, eps: float,
 def step(state: Smoke2DState, params: SmokeParams,
          inflow_density: torch.Tensor | None = None,
          inflow_mask: torch.Tensor | None = None) -> Smoke2DState:
+    """One 2D solver step, as :func:`mpgan_torch.solver.smoke.step`
+    (graphed: ``GraphedStep(smoke2d.step)``)."""
     dens, vel, solid = state
     if params.maccormack:
         dens = advect_2d_maccormack(dens, vel, params.dt)

@@ -49,7 +49,9 @@ and the schedule, which the ranks share.
 
 :class:`Graph` is also the capture primitive of the inference programs
 (:class:`mpgan_torch.infer.assemble.GraphedProgram`), which draw nothing
-and so register no generator.
+and so register no generator, and of the solver's step and datagen frame
+(:mod:`mpgan_torch.solver.graphed`, :mod:`mpgan_torch.solver.datagen`),
+whose inflow noise draws from a registered generator.
 """
 
 from __future__ import annotations

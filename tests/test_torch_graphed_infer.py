@@ -195,11 +195,19 @@ def test_graphed_upscaler_needs_one_card():
 
 
 def test_graphable_device_lists(monkeypatch):
+    """Graphable where every device named has CUDA graphs, one card or
+    distinct ones (each card's shares then its own programs); spans_cards
+    tells the two apart."""
+    cpu = torch.device("cpu")
+    cards = [torch.device("cuda", i) for i in range(2)]
+    assert TA.graphable(cards[0]) and TA.graphable(cards[0], cards)
+    assert not TA.graphable(cards[0], [cards[0], cpu])
     monkeypatch.setattr(graphed.Graph, "available",
                         staticmethod(lambda device: True))
-    cpu = torch.device("cpu")
     assert TA.graphable(cpu) and TA.graphable(cpu, [cpu] * 2)
-    assert not TA.graphable(cpu, [cpu, torch.device("cuda", 1)])
+    assert TA.graphable(cpu, [cpu, torch.device("cuda", 1)])
+    assert not TA.spans_cards(None) and not TA.spans_cards([cpu] * 2)
+    assert not TA.spans_cards([cards[1]] * 3) and TA.spans_cards(cards)
 
 
 @pytest.mark.parametrize("which", ["intermediates", "finals"])

@@ -13,7 +13,7 @@ skipped without one).
   on a stream of the card it is given with that card current, whichever
   card an earlier capture used (the CUDA primitives stubbed).
 - The graphing rule: a stage whose group is one device (repeated or not)
-  is graphed, a stage over distinct devices is not.
+  graphs its whole pass, a stage over distinct devices each card's share.
 - A generator changed in place on another device gets a new replica, and
   the stage a new program.
 - On a card: graphed frames equal eager ones bit for bit, float32 and
@@ -126,8 +126,9 @@ def test_graphed_stages_equal_eager_and_jax(stub, streams, n_stages):
 
 
 def test_stage_graphing_rule(monkeypatch):
-    """A stage over one device, repeated or not, replays graphs; a stage
-    over distinct devices (default_split(4, 2, 4) = (1, 3)) stays eager."""
+    """A stage over one device, repeated or not, replays its whole pass as
+    one graph; a stage over distinct devices (default_split(4, 2, 4) =
+    (1, 3)) replays each card's share (``split``)."""
     monkeypatch.setattr(graphed.Graph, "available",
                         staticmethod(lambda device: True))
     # the stages' streams are never used here
@@ -136,9 +137,11 @@ def test_stage_graphing_rule(monkeypatch):
     cards = [torch.device("cuda", i) for i in range(4)]
     pp = TPP.InferencePipeline(g1, g2, 4, devices=cards)
     assert pp.split == (1, 3)
-    assert [st.graphed for st in pp.stages] == [True, False]
+    assert [st.graphed for st in pp.stages] == [True, True]
+    assert [st.split for st in pp.stages] == [False, True]
     pp = TPP.InferencePipeline(g1, g2, 4, devices=[cards[0]] * 4)
     assert [st.graphed for st in pp.stages] == [True, True]
+    assert [st.split for st in pp.stages] == [False, False]
     pp = TPP.InferencePipeline(g1, g2, 4, devices=cards[:2])
     assert pp.split == (1, 1)
     assert [st.device for st in pp.stages] == cards[:2]
