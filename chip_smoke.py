@@ -6,12 +6,18 @@
 Phases, in order; any failure ends the run with a traceback and a non-zero
 exit, and no result line:
 
-1. build    nvcc builds every kernel of the port from csrc/ (in parallel)
+1. build    nvcc builds every kernel of the port from csrc/ (in parallel),
+            then g++ builds the warp forwards' operator library
+            (csrc/warp_ops.cpp, PyTorch's stable ABI, linked to the warp
+            library) and torch.ops.load_library registers it; prints the
+            card's torch version
 2. warp     every warp kernel vs its plain version on the card, at B=16
-            64² (the trainer's shape: 16x32 backward tiles, 128 blocks)
-            and B=256 256² (64x64 tiles for one field, 32x64 for a
+            64² (the trainer's shape: forwards one thread per pixel,
+            16x32 backward tiles, 128 blocks) and B=256 256² (forwards in
+            32x64 tiles; backward tiles 64x64 for one field, 32x64 for a
             triplet), velocity scales 1.5, 12 (beyond the ±8 clamp) and
-            0: the single-field and the triplet forward (max |Δ| ≤ 1e-5);
+            0: the single-field and the triplet forward (max |Δ| ≤ 1e-5),
+            each also forced through the other forward design;
             the gradients of every input through advect_2d_fast and
             align_triplet_fast, the field gradients as the train step asks
             for them and the velocity gradient alone (1e-4); each backward
@@ -24,8 +30,14 @@ exit, and no result line:
             plain version, a library call (grid_sample,
             grid_sampler_2d_backward) and its bound; each kernel's ms per
             call is the median of 5 windows, with their min and max,
-            beside the host µs per call of its wrapper (perf_counter over
-            1000 back-to-back calls, one synchronise)
+            beside the host µs per call of its wrapper and of the library
+            call (perf_counter over 400 back-to-back calls, one
+            synchronise, the two in alternation, the median of 5 rounds),
+            and the device µs per call of each kernel and of
+            its library call (mpgan_torch.profiling.profiled, 100 calls),
+            taken in a child process (`python3 chip_smoke.py
+            --warp-device-us`): a profiler session can leave later calls
+            slower on the host, and later phases time host-paced work
 2b single  advect_2d_fast forward and backward at B=16 64², the launch
             counts reset just before and read just after: 1 and 1
 3. bundled  the exported 4x L1 pair on sim_1010c frame 12 (32³→128³): f32
@@ -279,6 +291,7 @@ import json
 import os
 import shutil
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -348,6 +361,15 @@ def host_us(fn, iters=1000, warmup=10):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) / iters * 1e6
+
+
+def host_us_pair(fn, lib, rounds=5, iters=400):
+    """Host µs per call of ``fn()`` and of ``lib()``, measured in
+    alternation (:func:`host_us` over ``iters`` calls each), the median of
+    ``rounds`` rounds each: the card's host drifts by tens of percent from
+    one window to the next."""
+    runs = [(host_us(fn, iters), host_us(lib, iters)) for _ in range(rounds)]
+    return tuple(statistics.median(r[i] for r in runs) for i in (0, 1))
 
 
 def repeat_equal(fn, n=5):
@@ -446,6 +468,30 @@ def warp_checks(wk, b, h, w, vscale, dev):
     return err
 
 
+def warp_design_checks(wk, dev):
+    """Both forwards at both phase-2 shapes forced through each design,
+    one thread per pixel and tiles (fwd_tile patched), velocity scales
+    1.5, 12 and 0, against the plain versions (1e-5). → max abs error."""
+    chosen, err = wk.fwd_tile, 0.0
+    try:
+        for tile in ((0, 0), wk.FWD_TILE):
+            wk.fwd_tile = lambda *_, t=tile: t
+            wk._tile_of.cache_clear()
+            for b, h, w, _ in WARP_SHAPES:
+                for vscale in (1.5, 12.0, 0.0):
+                    p, c, n, v, _ = warp_inputs(b, h, w, vscale, 8, dev)
+                    e = max(gap([wk.advect_2d_kernel(p, v, -1.0)],
+                                [wk.advect_2d_clamped_ref(p, v, -1.0)]),
+                            gap([wk.align_triplet_kernel(p, c, n, v)],
+                                [wk.align_triplet_ref(p, c, n, v)]))
+                    assert e <= 1e-5, ("forward design", tile, b, vscale, e)
+                    err = max(err, e)
+    finally:
+        wk.fwd_tile = chosen
+        wk._tile_of.cache_clear()
+    return err
+
+
 def warp_chunk_check(wk, dev):
     """Both backwards with a clamp of 40 cells at B=4 256²: windows too
     large for one staged chunk, their max read from device memory; within
@@ -497,13 +543,14 @@ def warp_exponent_checks(wk, b, h, w, dev):
     return err
 
 
-def warp_times(wk, b, h, w, iters, dev):
-    """Each warp kernel at one shape: its wrapper's time per call (CUDA
-    events over back-to-back calls), its plain version's (for a backward,
-    the autograd backward of the plain forward through a kept graph), one
-    PyTorch call computing the same function (grid_sample, and for a
-    backward grid_sampler_2d_backward of the input alone; also grid_sample
-    forward plus backward through autograd), and its bound."""
+def warp_calls(wk, b, h, w, dev):
+    """Each warp kernel at one shape on warp_inputs(b, h, w, 1.5, 3): name →
+    (its wrapper's call, its plain version's (for a backward, the autograd
+    backward of the plain forward through a kept graph), one PyTorch call
+    computing the same function (grid_sample, and for a backward
+    grid_sampler_2d_backward of the input alone), grid_sample forward plus
+    backward through autograd for a backward or None), and name → the
+    library call's max |Δ| to the plain version."""
     p, c, n, v, gy = warp_inputs(b, h, w, 1.5, 3, dev)
     r = wk.DEFAULT_MAX_DISP
     g1 = gy[..., :1]
@@ -567,6 +614,15 @@ def warp_times(wk, b, h, w, iters, dev):
             lambda: gs_bwd(g_two, two, grid2),
             lambda: gs_fwd_bwd(two, grid2, g_two)),
     }
+    return calls, lib_err
+
+
+def warp_times(wk, b, h, w, iters, dev):
+    """Each warp kernel at one shape (:func:`warp_calls`): its wrapper's
+    time per call (CUDA events over back-to-back calls), its plain
+    version's, the library call's, and its bound; the host µs per call of
+    the wrapper and of the library call."""
+    calls, lib_err = warp_calls(wk, b, h, w, dev)
     px = b * h * w
     out = {}
     for name, (kern, plain, lib, lib_fb) in calls.items():
@@ -583,13 +639,42 @@ def warp_times(wk, b, h, w, iters, dev):
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / F32_FLOPS else "operations"),
             "library_max_abs_err": lib_err[name],
-            "host_us_per_call": host_us(kern),
-            "library_host_us_per_call": host_us(lib),
         }
+        out[name]["host_us_per_call"], out[name][
+            "library_host_us_per_call"] = host_us_pair(kern, lib)
         if lib_fb is not None:  # a backward: its repeat check held
             out[name]["library_fwd_bwd_ms"] = cuda_ms(lib_fb, iters)
             out[name]["deterministic"] = True
     return out
+
+
+def warp_device_us(wk, dev):
+    """Device µs per call of each warp kernel and of its library call at
+    both shapes: torch.profiler's summed kernel time over 100 calls, after
+    warm-up. → name → [small, large] of {"device_us",
+    "library_device_us"}."""
+    from mpgan_torch import profiling
+
+    out = {}
+    for b, h, w, _ in WARP_SHAPES:
+        calls, _ = warp_calls(wk, b, h, w, dev)
+        for name, (kern, _, lib, _) in calls.items():
+            row = {}
+            for key, fn in (("device_us", kern), ("library_device_us", lib)):
+                for _ in range(3):
+                    fn()
+                row[key] = profiling.profiled(fn, 100)[2] / 100
+            out.setdefault(name, []).append(row)
+    return out
+
+
+def warp_device_us_child():
+    """:func:`warp_device_us` in a child process → its result."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--warp-device-us"], capture_output=True, text=True,
+                       timeout=600, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def phase_warp(dev, wk):
@@ -606,10 +691,15 @@ def phase_warp(dev, wk):
           flush=True)
     print(f"   chunked windows (clamp 40) max |Δ| {warp_chunk_check(wk, dev)}",
           flush=True)
+    print("   forwards through both designs max |Δ| "
+          f"{warp_design_checks(wk, dev)}", flush=True)
     times = {}
     for b, h, w, iters in WARP_SHAPES:
         for name, t in warp_times(wk, b, h, w, iters, dev).items():
             times.setdefault(name, []).append(t)
+    for name, rows in warp_device_us_child().items():
+        for t, row in zip(times[name], rows):
+            t.update(row)
             print(f"   {name} timing " + json.dumps(t), flush=True)
     done(t0, **{f"{k}_max_abs_err": e for k, e in err.items()})
     return err, times
@@ -2951,14 +3041,20 @@ def main():
     from mpgan_torch.ops import warp_kernel as wk
 
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--warp-device-us"]:  # phase 2's child
+        print(json.dumps(warp_device_us(wk, dev)), flush=True)
+        return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = phase("1 build kernels (nvcc, sm_90a)")
+    t0 = phase("1 build kernels (nvcc, sm_90a) and the warp operators "
+               "(g++, stable ABI)")
     paths = _build.build()
     _build.load("warp")
+    paths["warp_ops"] = _build.load_ops("warp_ops")
+    wk._operators()
     build_s = time.perf_counter() - t0
-    done(t0, libs=",".join(sorted(paths)))
+    done(t0, libs=",".join(sorted(paths)), torch=torch.__version__)
 
     warp_err, times = phase_warp(dev, wk)
     single_launches, single_err = phase_single_path(dev, wk)
@@ -2998,6 +3094,9 @@ def main():
         small, large = times[name]
         entry = {"name": name, "route": "cuda",
                  "source": "mpgan_torch/csrc/warp.cu", "replaces": replaces,
+                 "launch": ("torch.ops.mpgan_warp (mpgan_torch/csrc/"
+                            "warp_ops.cpp)" if "bwd" not in name
+                            else "ctypes"),
                  "launches": launches, "path": path,
                  "max_abs_err": max(warp_err[name], path_err)}
         entry.update(small)

@@ -10,6 +10,14 @@ Host-only C++ sources, ``csrc/<name>.cpp`` (the ``.uni`` codec), take the
 second recipe, :func:`build_host`: g++ with the libraries of
 :data:`HOST_LIBS`, into the same directory under the same naming.
 
+Operator sources, ``csrc/<name>.cpp`` of :data:`OPS_LIBS` (the warp
+forwards), take the third, :func:`build_ops`: g++ against PyTorch's
+header-only stable ABI (``torch/csrc/stable``; not ``torch/extension.h``,
+whose build takes minutes), linked to the kernel library they launch and to
+torch's own libraries; :func:`load_ops` loads the result with
+``torch.ops.load_library``, which registers its operators with PyTorch's
+dispatcher.
+
 Nothing here runs at import: the CPU-only tests import every module.
 """
 
@@ -31,6 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 # host source -> the libraries it links
 HOST_LIBS = {"uni_native": ["-lz"]}
+# operator source -> the kernel library (csrc/<name>.cu) it links and calls
+OPS_LIBS = {"warp_ops": "warp"}
 
 # ctypes signatures of each library's entry points:
 # name -> {function: (restype, [argtypes])}
@@ -38,9 +48,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     "warp": {
-        "mpgan_warp2d": (_I, [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P]),
-        "mpgan_warp2d_triplet": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                      _I, _P]),
+        "mpgan_warp2d": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                              _P]),
+        "mpgan_warp2d_triplet": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _F, _I, _P]),
         "mpgan_warp2d_bwd": (_I, [_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _F, _F, _I, _P]),
         "mpgan_warp2d_triplet_bwd": (_I, [_P, _L, _L, _L, _L, _P, _P, _P, _P,
@@ -51,6 +62,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_ops_loaded: dict[str, Path] = {}
 
 
 def nvcc() -> str:
@@ -72,20 +84,19 @@ def _lib_path(name: str, ext: str = ".cu", flags=NVCC_FLAGS) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_host(name: str) -> Path:
-    """Compile the host-only ``csrc/<name>.cpp`` with g++ (if it has no
-    up-to-date library yet) → its library path. Raises ``RuntimeError``
-    with g++'s output when the compile fails and ``OSError`` when there is
-    no g++; the library appears by ``os.replace`` of a temporary file, so
-    that no process loads half of one."""
-    libs = HOST_LIBS[name]
-    path = _lib_path(name, ".cpp", GXX_FLAGS + libs)
+def _gxx(name: str, flags: list, libs: list, key: str = "") -> Path:
+    """Compile ``csrc/<name>.cpp`` with g++ (if it has no up-to-date
+    library yet; ``key`` adds to the hash) → its library path. Raises
+    ``RuntimeError`` with g++'s output when the compile fails and
+    ``OSError`` when there is no g++; the library appears by ``os.replace``
+    of a temporary file, so that no process loads half of one."""
+    path = _lib_path(name, ".cpp", [*flags, *libs] + ([key] if key else []))
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     try:
-        r = subprocess.run(["g++", *GXX_FLAGS, str(CSRC_DIR / f"{name}.cpp"),
+        r = subprocess.run(["g++", *flags, str(CSRC_DIR / f"{name}.cpp"),
                             "-o", str(tmp), *libs],
                            capture_output=True, text=True, timeout=120)
         if r.returncode != 0:
@@ -95,6 +106,31 @@ def build_host(name: str) -> Path:
     finally:
         tmp.unlink(missing_ok=True)
     return path
+
+
+def build_host(name: str) -> Path:
+    """Compile the host-only ``csrc/<name>.cpp`` with g++ and the libraries
+    of :data:`HOST_LIBS` → its library path (see :func:`_gxx`)."""
+    return _gxx(name, GXX_FLAGS, HOST_LIBS[name])
+
+
+def build_ops(name: str) -> Path:
+    """Compile the operator source ``csrc/<name>.cpp`` against PyTorch's
+    stable ABI headers, linked to its kernel library (built first, found
+    beside it through ``$ORIGIN``) and to torch's ``libtorch_cpu``,
+    ``libtorch_cuda`` and ``libc10`` → its library path. The hash covers
+    the kernel library's name (so an edited kernel relinks) and torch's
+    version."""
+    import torch
+
+    kernel = build([OPS_LIBS[name]])[OPS_LIBS[name]]
+    tdir = Path(torch.__file__).resolve().parent
+    flags = [*GXX_FLAGS, "-std=c++17", "-DUSE_CUDA",
+             f"-I{tdir / 'include'}"]
+    libs = [f"-L{BUILD_DIR}", f"-l:{kernel.name}", "-Wl,-rpath,$ORIGIN",
+            f"-L{tdir / 'lib'}", "-ltorch_cpu", "-ltorch_cuda", "-lc10",
+            f"-Wl,-rpath,{tdir / 'lib'}"]
+    return _gxx(name, flags, libs, torch.__version__)
 
 
 def build(names=None) -> dict[str, Path]:
@@ -124,6 +160,20 @@ def build(names=None) -> dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+def load_ops(name: str) -> Path:
+    """Build the operator library ``name`` if needed and register its
+    operators with PyTorch (once per process) → its path."""
+    import torch
+
+    with _lock:
+        path = _ops_loaded.get(name)
+        if path is None:
+            path = build_ops(name)
+            torch.ops.load_library(str(path))
+            _ops_loaded[name] = path
+        return path
 
 
 def load(name: str) -> ctypes.CDLL:

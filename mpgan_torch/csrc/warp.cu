@@ -34,15 +34,43 @@
 // All are bytes-bound: about 30 flops per pixel and field, far below the
 // card's 20 flops per byte of f32 work.
 //
-// Forward design. One thread per output pixel, neighbouring threads on
-// neighbouring x: the velocity load (one float2) and the stores coalesce,
-// and the 4 taps of neighbouring threads fall on the same or adjacent
-// cache lines, which L1 catches, so no shared-memory halo is needed. The
-// TPU kernel's (2R+2)^2 roll-and-select loop and host-side edge pad
-// existed only because Mosaic has no gather; here the taps are gathered
-// with clamped indices, which reproduces the edge pad exactly for
-// displacements within +-R.
+// Forward design. A block owns a tile of th x tw output pixels of one
+// image (`fwd_tile` in mpgan_torch/ops/warp_kernel.py picks it, the one
+// place of the rule). Before it reads any tap it puts every copy of the
+// tile in flight at once with cp.async (LDGSTS): the velocity tile, and the
+// window of each field that the tile's taps can reach, the tile and a halo
+// of ceil(|dt| L) + 1 cells, clipped to the image (the clamp bounds the
+// backtrace to +-|dt| L cells for any velocity, so the window's address
+// does not depend on the velocity). One thread per pixel (below) makes
+// two dependent trips to device memory, the velocity and then the taps it
+// names; a block here makes one, with its whole tile's bytes in flight.
+// Rows whose addresses allow it (W % 4 == 0, 16-byte aligned tensors) are
+// copied in 16-byte pieces, the window widened to multiples of 4 columns;
+// other shapes take 8-byte (velocity) and 4-byte (field) copies. The taps
+// are then read from shared memory with the arithmetic of `locate`, so
+// border clamping is exact and the result is the plain version's up to
+// FMA contraction. The TPU kernel's (2R+2)^2 roll-and-select loop and
+// host-side edge pad existed only because Mosaic has no gather; here the
+// taps are gathered with clamped indices, which reproduces the edge pad
+// exactly for displacements within +-R.
 //
+// The triplet stages its (pixel, 3) output in shared memory: the two warps
+// and cur (copied into its slot with the other copies) are written there,
+// then each row of the tile, 3 tw contiguous floats in the output, is
+// stored in coalesced 16-byte pieces, where one thread per pixel stores
+// 3 floats at a 12-byte stride, touching each sector three times.
+//
+// Where the batch is too small for several waves of tiles (`fwd_tile`
+// gives 0 x 0: below 1024 tiles for one field, 4096 for a triplet, as at
+// the trainer's B=16 64x64), the forwards run one thread per pixel
+// instead: the velocity, then its 4 taps through L1. There the input sits
+// in L2 and a call is latency-bound; a block's window brings 3-5 times its
+// tile's bytes (a halo of 9 cells), and on the card every tile tried was
+// slower than two dependent trips of one pixel per thread. The counts are
+// where the tiled kernel overtook it on the H100 (PERF.md §6). Windows too
+// large for kFwdSmemBudget (a clamp far above the trainer's 8 cells) take
+// that path too.
+
 // Backward design. The field gradient is the transpose of the 4-tap
 // gather, a scatter: pixel p adds g[p] * weight into the 4 cells it read.
 // The scatter is turned into ownership: each block owns a tile of TH x TW
@@ -136,6 +164,8 @@ namespace {
 constexpr int kThreads = 512;           // backward: threads of a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemBudget = 112 * 1024; // backward: two blocks per SM
+constexpr int kFwdThreads = 256;        // forward: threads of a block
+constexpr int kFwdSmemBudget = 112 * 1024;  // forward: two blocks per SM
 
 // Make device `dev` current for a launch if it is not, and restore the
 // caller's device after.
@@ -181,16 +211,34 @@ __device__ __forceinline__ Taps locate(int x, int y, int h, int w, float vw,
   return t;
 }
 
-// f: start of one (H, W) image.
-__device__ __forceinline__ float blend(const float* __restrict__ f, int w,
-                                       const Taps& t) {
-  float top = __ldg(f + t.y0 * w + t.x0) * (1.0f - t.fx)
-              + __ldg(f + t.y0 * w + t.x1) * t.fx;
-  float bot = __ldg(f + t.y1 * w + t.x0) * (1.0f - t.fx)
-              + __ldg(f + t.y1 * w + t.x1) * t.fx;
+// The 4-tap bilinear blend of taps t; f(y, x) reads the field at image
+// cell (y, x), from the staged window or from device memory.
+template <class Field>
+__device__ __forceinline__ float blend(Field f, const Taps& t) {
+  float top = f(t.y0, t.x0) * (1.0f - t.fx) + f(t.y0, t.x1) * t.fx;
+  float bot = f(t.y1, t.x0) * (1.0f - t.fx) + f(t.y1, t.x1) * t.fx;
   return top * (1.0f - t.fy) + bot * t.fy;
 }
 
+// NF fields (1, or 2 for a triplet's prev and nxt) warped by one velocity.
+template <int NF>
+struct FwdArgs {
+  const float* f[NF];  // the fields (B, H, W)
+  float dt[NF];
+  const float* cur;    // a triplet's middle field (B, H, W)
+  const float2* vel;
+  float* out;          // (B, H, W) for one field, (B, H, W, 3) for a triplet
+  int h, w, th, tw, halo;
+  int tw_shift;        // tw = 2^tw_shift
+  int win_shift;       // a window row's copies fit 2^win_shift slots
+  int win_cap;         // floats of one field's staged window
+  bool vec;            // W % 4 == 0 and every tensor 16-byte aligned
+  float lim;
+};
+
+// One thread per output pixel (the latency-bound shapes): the velocity,
+// then its taps, read from device memory, the triplet's three values
+// stored at a 12-byte stride.
 __global__ void warp2d_kernel(const float* __restrict__ field,
                               const float2* __restrict__ vel,
                               float* __restrict__ out, int n, int h, int w,
@@ -201,7 +249,8 @@ __global__ void warp2d_kernel(const float* __restrict__ field,
   int row = i / w;  // b * h + y
   int y = row % h;
   float2 v = vel[i];
-  out[i] = blend(field + (size_t)(row - y) * w, w,
+  const float* f = field + (size_t)(row - y) * w;
+  out[i] = blend([&](int yy, int xx) { return __ldg(f + yy * w + xx); },
                  locate(x, y, h, w, v.x, v.y, dt, lim));
 }
 
@@ -219,9 +268,180 @@ __global__ void warp2d_triplet_kernel(const float* __restrict__ prev,
   size_t img = (size_t)(row - y) * w;
   float2 v = vel[i];
   float* o = out + 3 * (size_t)i;
-  o[0] = blend(prev + img, w, locate(x, y, h, w, v.x, v.y, 1.0f, lim));
+  const float* p = prev + img;
+  const float* q = nxt + img;
+  o[0] = blend([&](int yy, int xx) { return __ldg(p + yy * w + xx); },
+               locate(x, y, h, w, v.x, v.y, 1.0f, lim));
   o[1] = cur[i];
-  o[2] = blend(nxt + img, w, locate(x, y, h, w, v.x, v.y, -1.0f, lim));
+  o[2] = blend([&](int yy, int xx) { return __ldg(q + yy * w + xx); },
+               locate(x, y, h, w, v.x, v.y, -1.0f, lim));
+}
+
+// One tile per block (the bandwidth-bound shapes), the field windows
+// staged in shared memory. Block (x, y, z) owns the tile at column x tw,
+// row y th of image z. Every loop maps its index to (row, column) with
+// shifts and masks over power-of-two row slots, never a division.
+template <int NF>
+__global__ void __launch_bounds__(kFwdThreads)
+    warp2d_fwd_kernel(FwdArgs<NF> a) {
+  // shared: the velocity tile (th x tw, row stride tw), then each field's
+  // window (sh x sw, row stride sw), then a triplet's output tile
+  // (th x tw x 3, row stride 3 tw)
+  extern __shared__ float4 smem[];
+  float2* s_vel = reinterpret_cast<float2*>(smem);
+  float* s_f = reinterpret_cast<float*>(s_vel + a.th * a.tw);
+  float* s_out = s_f + NF * a.win_cap;
+  const int oy0 = blockIdx.y * a.th, ox0 = blockIdx.x * a.tw;
+  const int th = min(a.th, a.h - oy0), tw = min(a.tw, a.w - ox0);
+  const size_t img = (size_t)blockIdx.z * a.h * a.w;
+  const int ts = a.tw_shift, tmask = a.tw - 1;
+  // the window: the tile and a halo, clipped to the image; with 16-byte
+  // copies its columns widened to multiples of 4 (W % 4 == 0)
+  const int sy0 = max(oy0 - a.halo, 0);
+  const int sh = min(oy0 + th + a.halo, a.h) - sy0;
+  int sx0 = max(ox0 - a.halo, 0), sx1 = min(ox0 + tw + a.halo, a.w);
+  if (a.vec) {
+    sx0 &= ~3;
+    sx1 = min((sx1 + 3) & ~3, a.w);
+  }
+  const int sw = sx1 - sx0;
+  const int step = a.vec ? 4 : 1;  // floats per copy of a field row
+
+  // 1. every copy in flight at once (cp.async), then wait
+  if (a.vec) {  // two velocity pixels per 16-byte copy (tw is even)
+    for (int q = threadIdx.x; q < th << (ts - 1); q += blockDim.x) {
+      const int r = q >> (ts - 1), c = 2 * (q & (tmask >> 1));
+      if (c < tw)
+        __pipeline_memcpy_async(
+            s_vel + r * a.tw + c,
+            a.vel + img + (size_t)(oy0 + r) * a.w + ox0 + c, 16);
+    }
+  } else {
+    for (int q = threadIdx.x; q < th << ts; q += blockDim.x) {
+      const int r = q >> ts, c = q & tmask;
+      if (c < tw)
+        __pipeline_memcpy_async(
+            s_vel + r * a.tw + c,
+            a.vel + img + (size_t)(oy0 + r) * a.w + ox0 + c, sizeof(float2));
+    }
+  }
+  {
+    const int ws = a.win_shift, wmask = (1 << ws) - 1, pieces = sw / step;
+    for (int q = threadIdx.x; q < sh << ws; q += blockDim.x) {
+      const int r = q >> ws, c = (q & wmask) * step;
+      if (c >= pieces * step) continue;
+      const size_t src = img + (size_t)(sy0 + r) * a.w + sx0 + c;
+#pragma unroll
+      for (int k = 0; k < NF; ++k)
+        __pipeline_memcpy_async(s_f + k * a.win_cap + r * sw + c,
+                                a.f[k] + src, step * sizeof(float));
+    }
+  }
+  if (NF == 2) {  // cur into its slot of the staged output
+    for (int q = threadIdx.x; q < th << ts; q += blockDim.x) {
+      const int r = q >> ts, c = q & tmask;
+      if (c < tw)
+        __pipeline_memcpy_async(
+            s_out + (r * a.tw + c) * 3 + 1,
+            a.cur + img + (size_t)(oy0 + r) * a.w + ox0 + c, sizeof(float));
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // 2. the warps, from the staged taps
+  for (int q = threadIdx.x; q < th << ts; q += blockDim.x) {
+    const int r = q >> ts, c = q & tmask;
+    if (c >= tw) continue;
+    const int y = oy0 + r, x = ox0 + c;
+    const float2 v = s_vel[q];
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      const Taps t = locate(x, y, a.h, a.w, v.x, v.y, a.dt[k], a.lim);
+      const float* win = s_f + k * a.win_cap;
+      const float res = blend([&](int yy, int xx) {
+        return win[(yy - sy0) * sw + (xx - sx0)];
+      }, t);
+      if (NF == 1)
+        a.out[img + (size_t)y * a.w + x] = res;
+      else
+        s_out[q * 3 + 2 * k] = res;
+    }
+  }
+  if (NF == 1) return;
+  __syncthreads();
+
+  // 3. a triplet's tile: each row 3 tw contiguous floats of the output, in
+  // 16-byte stores where the addresses allow (3 tw / 4 <= tw slots a row;
+  // 3 tw <= 4 tw for single floats)
+  const int ss = a.vec ? ts : ts + 2, smask = (1 << ss) - 1;
+  const int pieces = 3 * tw / step;
+  for (int q = threadIdx.x; q < th << ss; q += blockDim.x) {
+    const int r = q >> ss, c = (q & smask) * step;
+    if (c >= pieces * step) continue;
+    const float* src = s_out + r * 3 * a.tw + c;
+    float* dst = a.out + 3 * (img + (size_t)(oy0 + r) * a.w + ox0) + c;
+    if (a.vec)
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    else
+      *dst = *src;
+  }
+}
+
+// Launch the forward for NF fields over b images: one block per tile of
+// th x tw pixels (tw a power of 2, at least 4) with its windows staged, or,
+// for th = tw = 0 or windows too large for kFwdSmemBudget (a clamp far
+// above the trainer's), one thread per pixel.
+template <int NF>
+int launch_fwd(FwdArgs<NF> a, int b, int dev, cudaStream_t stream) {
+  const int n = b * a.h * a.w;
+  if (n == 0) return 0;
+  const bool tiled = a.th > 0;
+  if (a.th < 0 || (tiled && (a.tw < 4 || (a.tw & (a.tw - 1)))))
+    return (int)cudaErrorInvalidValue;
+  float reach = 0.0f;
+  for (int k = 0; k < NF; ++k) reach = fmaxf(reach, fabsf(a.dt[k]) * a.lim);
+  a.halo = (int)ceilf(fminf(reach, 1e6f)) + 1;
+  // the widest window: the tile, the halo and up to 3 + 3 columns of
+  // widening to multiples of 4, within the image; rounded up to 4 floats,
+  // so that every window starts 16-byte aligned
+  const long long win_h = std::min(a.th + 2 * a.halo, a.h);
+  const long long win_w = std::min(a.tw + 2 * a.halo + 6, a.w);
+  a.win_cap = (int)std::min((win_h * win_w + 3) & ~3ll, 1ll << 28);
+  const long long tile = (long long)a.th * a.tw;
+  const long long smem = tile * sizeof(float2) + (NF == 2 ? tile * 12 : 0)
+                         + (long long)NF * a.win_cap * sizeof(float);
+  const dim3 grid(tiled ? (a.w + a.tw - 1) / a.tw : 0,
+                  tiled ? (a.h + a.th - 1) / a.th : 0, b);
+  DeviceGuard guard(dev);
+  if (!tiled || smem > kFwdSmemBudget || grid.y > 65535) {
+    const int blocks = (n + kFwdThreads - 1) / kFwdThreads;
+    if constexpr (NF == 1)
+      warp2d_kernel<<<blocks, kFwdThreads, 0, stream>>>(
+          a.f[0], a.vel, a.out, n, a.h, a.w, a.dt[0], a.lim);
+    else
+      warp2d_triplet_kernel<<<blocks, kFwdThreads, 0, stream>>>(
+          a.f[0], a.cur, a.f[1], a.vel, a.out, n, a.h, a.w, a.lim);
+    return (int)cudaGetLastError();
+  }
+  a.vec = a.w % 4 == 0 && (uintptr_t)a.vel % 16 == 0
+          && (uintptr_t)a.out % 16 == 0;
+  for (int k = 0; k < NF; ++k) a.vec = a.vec && (uintptr_t)a.f[k] % 16 == 0;
+  a.tw_shift = 0;
+  while ((1 << a.tw_shift) < a.tw) ++a.tw_shift;
+  const long long slots = a.vec ? (win_w + 3) / 4 : win_w;
+  a.win_shift = 0;
+  while ((1ll << a.win_shift) < slots) ++a.win_shift;
+  if (smem > 48 * 1024) {
+    int err = (int)cudaFuncSetAttribute(
+        warp2d_fwd_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err) return err;
+  }
+  warp2d_fwd_kernel<NF><<<grid, (int)std::min<long long>(kFwdThreads, tile),
+                          (int)smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // NF fields (1, or 2 for a triplet) warped by one velocity.
@@ -498,40 +718,41 @@ int launch_bwd(BwdArgs<NF> a, int b, int dev, cudaStream_t stream) {
 // unless strides are given; B*H*W (3*B*H*W for a triplet's output) fits in
 // an int and B <= 65535 (the wrapper checks). Each function launches on
 // `stream` (a stream of `dev`), allocates nothing, does not synchronise,
-// and returns cudaGetLastError() (cudaErrorInvalidValue for a backward
-// tile it does not take).
+// and returns cudaGetLastError() (cudaErrorInvalidValue for a tile it does
+// not take). csrc/warp_ops.cpp calls the two forwards from PyTorch's
+// dispatcher; the backwards are called through ctypes.
 
-// field (B, H, W), vel (B, H, W, 2), out (B, H, W).
+// field (B, H, W), vel (B, H, W, 2), out (B, H, W); th x tw is the tile of
+// a block (tw a power of 2, at least 4), or 0 x 0 for one thread per pixel.
 extern "C" int mpgan_warp2d(const void* field, const void* vel, void* out,
-                            int b, int h, int w, float dt, float lim,
-                            int dev, void* stream) {
-  int n = b * h * w;
-  if (n == 0) return 0;
-  const int threads = 256;
-  DeviceGuard guard(dev);
-  warp2d_kernel<<<(n + threads - 1) / threads, threads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(field), static_cast<const float2*>(vel),
-      static_cast<float*>(out), n, h, w, dt, lim);
-  return (int)cudaGetLastError();
+                            int b, int h, int w, int th, int tw, float dt,
+                            float lim, int dev, void* stream) {
+  FwdArgs<1> a{};
+  a.f[0] = static_cast<const float*>(field);
+  a.dt[0] = dt;
+  a.vel = static_cast<const float2*>(vel);
+  a.out = static_cast<float*>(out);
+  a.h = h; a.w = w; a.th = th; a.tw = tw; a.lim = lim;
+  return launch_fwd(a, b, dev, static_cast<cudaStream_t>(stream));
 }
 
 // prev, cur, nxt (B, H, W), vel (B, H, W, 2), out (B, H, W, 3); dt = +1
-// for prev, -1 for nxt, so L = max_disp.
+// for prev, -1 for nxt, so L = max_disp; th x tw as for mpgan_warp2d.
 extern "C" int mpgan_warp2d_triplet(const void* prev, const void* cur,
                                     const void* nxt, const void* vel,
-                                    void* out, int b, int h, int w, float lim,
-                                    int dev, void* stream) {
-  int n = b * h * w;
-  if (n == 0) return 0;
-  const int threads = 256;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  DeviceGuard guard(dev);
-  warp2d_triplet_kernel<<<(n + threads - 1) / threads, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      f(prev), f(cur), f(nxt), static_cast<const float2*>(vel),
-      static_cast<float*>(out), n, h, w, lim);
-  return (int)cudaGetLastError();
+                                    void* out, int b, int h, int w, int th,
+                                    int tw, float lim, int dev,
+                                    void* stream) {
+  FwdArgs<2> a{};
+  a.f[0] = static_cast<const float*>(prev);
+  a.f[1] = static_cast<const float*>(nxt);
+  a.dt[0] = 1.0f;
+  a.dt[1] = -1.0f;
+  a.cur = static_cast<const float*>(cur);
+  a.vel = static_cast<const float2*>(vel);
+  a.out = static_cast<float*>(out);
+  a.h = h; a.w = w; a.th = th; a.tw = tw; a.lim = lim;
+  return launch_fwd(a, b, dev, static_cast<cudaStream_t>(stream));
 }
 
 // g: the gradient of out, read at g + b*gsb + y*gsy + x*gsx; field (B, H, W)

@@ -22,10 +22,20 @@ both ways for CUDA tensors (:class:`AdvectFast`, :class:`AlignTripletFast`),
 the plain version and its autograd for CPU tensors. There is no fallback:
 on CUDA tensors a failed build or launch raises.
 
-The launchers are lean, since at the trainer's shape a call is host time:
-one pass of checks over the tensors (the detailed checks with their
-messages run only for what is refused), outputs from ``new_empty``, the
-current stream's raw handle from ``torch._C._cuda_getCurrentRawStream``
+The forward wrappers make one call into C++ per launch: each calls an
+operator registered with PyTorch's dispatcher (``csrc/warp_ops.cpp``,
+``torch.ops.mpgan_warp``, built against the stable ABI and loaded at first
+use by :func:`mpgan_torch._build.load_ops`), which checks the tensors,
+allocates the output and launches on the current stream, as
+``grid_sample`` does. The wrapper picks the tile (:func:`fwd_tile`: 32x64
+tiles with staged windows at bandwidth-bound shapes, one thread per pixel
+at latency-bound ones such as the trainer's) and, when the operator
+refuses its inputs, finds which and raises the ``ValueError``
+(:func:`_refuse`). A CPU tensor is refused before the operator is built.
+The backwards stay on ctypes: one pass of checks over the tensors (the
+detailed checks with their messages run only for what is refused),
+outputs from ``new_empty``, the current stream's raw handle from
+``torch._C._cuda_getCurrentRawStream``
 (``torch.cuda.current_stream(...).cuda_stream`` where torch lacks it,
 decided once at import; :data:`STREAM_SOURCE` says which), and the device
 made current inside the C entry only when it is not. The backward's tile is
@@ -55,6 +65,10 @@ launches = 0
 bwd_launches = 0
 
 _lib = None
+_ops = None  # the forward operators' builtins, once loaded
+
+# the text of the operators' refusal (csrc/warp_ops.cpp kRefused)
+REFUSED = "mpgan_warp: inputs refused"
 
 
 def _kernels():
@@ -63,6 +77,18 @@ def _kernels():
     if _lib is None:
         _lib = _build.load("warp")
     return _lib
+
+
+def _operators():
+    """(warp2d, warp2d_triplet): the forward operators as the builtins that
+    ``torch.ops.mpgan_warp.<name>.default`` calls, built, linked to the warp
+    library and registered with PyTorch's dispatcher at first use."""
+    global _ops
+    if _ops is None:
+        _build.load_ops("warp_ops")
+        ns = torch.ops.mpgan_warp
+        _ops = (ns.warp2d.default._op, ns.warp2d_triplet.default._op)
+    return _ops
 
 
 def _clamp_limit(dt: float, max_disp: int) -> float:
@@ -101,6 +127,36 @@ else:
     def _stream(index: int) -> int:
         return torch.cuda.current_stream(index).cuda_stream
     STREAM_SOURCE = "torch.cuda.current_stream"
+
+# The forwards' tile (rows, columns), taken where the batch gives at least
+# FWD_MIN_BLOCKS[fields] blocks of it: the bandwidth-bound shapes, several
+# waves on an H100's 132 SMs. Elsewhere (0, 0): one thread per pixel, the
+# design for latency-bound shapes. The counts are where the tiled kernel
+# overtook one thread per pixel on the H100 (PERF.md §6): a triplet's
+# tile holds 74 KB of shared memory, three blocks per SM, and needs more
+# waves than one field's 33 KB. The width is a power of 2 (16-byte copies
+# of whole rows).
+FWD_TILE = (32, 64)
+FWD_MIN_BLOCKS = {1: 1024, 2: 4096}
+
+
+@functools.lru_cache(maxsize=64)
+def fwd_tile(b: int, h: int, w: int, fields: int) -> tuple[int, int]:
+    """The tile (rows, columns) a block of the forward kernel owns for
+    ``b`` images of ``h`` x ``w`` and 1 field or a triplet (``fields`` 2,
+    prev and nxt), or (0, 0) for one thread per pixel."""
+    th, tw = FWD_TILE
+    if b * -(-h // th) * -(-w // tw) >= FWD_MIN_BLOCKS[fields]:
+        return th, tw
+    return 0, 0
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_of(shape: torch.Size, fields: int) -> tuple[int, int]:
+    """:func:`fwd_tile` for ``vel.shape``; any tile for a shape the
+    operator will refuse."""
+    return fwd_tile(*shape[:3], fields) if len(shape) == 4 else (0, 0)
+
 
 # The backward's tiles (rows, columns) for one field and for a triplet's
 # two, largest first: the first that gives at least BWD_MIN_BLOCKS blocks
@@ -181,19 +237,28 @@ def _failed(fn, err: int) -> None:
     raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
 
 
+def _load(name: str, vel: torch.Tensor, fields, names):
+    """The forward operators, loaded at a wrapper's first call; a CPU
+    ``vel`` is refused before anything is built."""
+    if not vel.is_cuda:
+        _refuse(name, vel, fields, names)
+    return _operators()
+
+
 def advect_2d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float = 1.0,
                      max_disp: int = DEFAULT_MAX_DISP) -> torch.Tensor:
     """Launch the CUDA warp: field (B, H, W, 1), vel (B, H, W, 2) as
     (v_w, v_h), contiguous float32 on one CUDA device → (B, H, W, 1)
     float32. Raises on anything the kernel does not take."""
     global launches
-    b, h, w, dev = _check("advect_2d_kernel", vel, (field,), ("field",))
-    out = vel.new_empty((b, h, w, 1))
-    fn = _kernels().mpgan_warp2d
-    err = fn(field.data_ptr(), vel.data_ptr(), out.data_ptr(), b, h, w,
-             float(dt), _clamp_limit(dt, max_disp), dev, _stream(dev))
-    if err:
-        _failed(fn, err)
+    ops = _ops or _load("advect_2d_kernel", vel, (field,), ("field",))
+    try:
+        out = ops[0](field, vel, float(dt), int(max_disp),
+                     *_tile_of(vel.shape, 1))
+    except RuntimeError as e:  # a refusal, or no CUDA tensor among them
+        if not (REFUSED in str(e) or isinstance(e, NotImplementedError)):
+            raise
+        _refuse("advect_2d_kernel", vel, (field,), ("field",))
     launches += 1
     return out
 
@@ -234,14 +299,15 @@ def align_triplet_kernel(prev: torch.Tensor, cur: torch.Tensor,
     displacement clamped to ±max_disp. Raises on anything the kernel does
     not take."""
     global launches
-    b, h, w, dev = _check("align_triplet_kernel", vel, (prev, cur, nxt),
-                          ("prev", "cur", "nxt"))
-    out = vel.new_empty((b, h, w, 3))
-    fn = _kernels().mpgan_warp2d_triplet
-    err = fn(prev.data_ptr(), cur.data_ptr(), nxt.data_ptr(), vel.data_ptr(),
-             out.data_ptr(), b, h, w, float(max_disp), dev, _stream(dev))
-    if err:
-        _failed(fn, err)
+    names = ("prev", "cur", "nxt")
+    ops = _ops or _load("align_triplet_kernel", vel, (prev, cur, nxt), names)
+    try:
+        out = ops[1](prev, cur, nxt, vel, int(max_disp),
+                     *_tile_of(vel.shape, 2))
+    except RuntimeError as e:  # a refusal, or no CUDA tensor among them
+        if not (REFUSED in str(e) or isinstance(e, NotImplementedError)):
+            raise
+        _refuse("align_triplet_kernel", vel, (prev, cur, nxt), names)
     launches += 1
     return out
 

@@ -63,10 +63,13 @@ PROBE_RANGES = ("warp_path_fwd", "warp_path_bwd")
 LAUNCH_CALLS = re.compile(
     r"cu(da)?(LaunchKernel\w*|GraphLaunch|Memcpy\w*Async|Memset\w*Async)")
 # the warp kernels as the trace names them → the names chip_smoke.py and
-# PERF.md give them
+# PERF.md give them (a forward runs one thread per pixel, warp2d_kernel or
+# warp2d_triplet_kernel, or in tiles, warp2d_fwd_kernel<fields>)
 WARP_TRACE_NAMES = (("warp2d_triplet_kernel", "warp2d_triplet"),
+                    ("warp2d_fwd_kernel<2", "warp2d_triplet"),
                     ("warp2d_bwd_kernel<2", "warp2d_triplet_bwd"),
                     ("warp2d_bwd_kernel<1", "warp2d_bwd"),
+                    ("warp2d_fwd_kernel<1", "warp2d"),
                     ("warp2d_kernel", "warp2d"))
 # NCCL's kernels as the trace names them (a one-rank reduction is
 # oneRankReduce)
