@@ -34,10 +34,22 @@ eagerly on the first card.
 The streamed assembly's chunks run eagerly (JAX jits its ``chunk_fn``):
 the host's fetch of each chunk bounds that path, and a capture made anew
 per call costs more than its replays save.
+
+Spans (:mod:`mpgan_torch.tracing`): ``upscale.frame``, one call of a
+graphed upscaler, timed on its card; ``upscale.pass`` (``pass_no``), one
+pass. Within a pass split over several devices, each timed on the stream
+its work runs on: ``upscale.scatter`` (``card``), the copy of a share from
+the first card; ``upscale.share`` (``card``), a card's call or replay on
+its share; ``upscale.gather`` (``card``), the copy of its result back,
+which runs on that card (the first card's own share copies nothing);
+``upscale.between``, the first card's own work after the gather (the
+concatenation, and before pass 2 or 3 the velocity resize), begun after
+the waits for the other cards are enqueued.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import weakref
@@ -47,6 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mpgan_torch import tracing
 from mpgan_torch.ops.upsample import resize_volume
 from mpgan_torch.parallel.mesh import canonical
 from mpgan_torch.train import graphed
@@ -98,11 +111,32 @@ def _per_device(gen, devices, programs=None, **kw):
 def _split_apply(share_fn, x: torch.Tensor, devices) -> torch.Tensor:
     """``share_fn(block, device)`` over ``x`` split into one contiguous
     block per device; every launch is enqueued before any result is
-    gathered, so the devices overlap."""
-    outs = [share_fn(part.to(dev, non_blocking=True), dev)
-            for part, dev in zip(torch.tensor_split(x, len(devices)),
-                                 devices) if part.shape[0]]
-    return torch.cat([o.to(devices[0], non_blocking=True) for o in outs])
+    gathered, so the devices overlap. Each step is a span (module
+    docstring)."""
+    first = devices[0]
+    outs = []
+    for card, (part, dev) in enumerate(zip(
+            torch.tensor_split(x, len(devices)), devices)):
+        if not part.shape[0]:
+            continue
+        with tracing.span("upscale.scatter", first, card=card):
+            part = part.to(dev, non_blocking=True)
+        with tracing.span("upscale.share", dev, card=card):
+            outs.append((card, dev, share_fn(part, dev)))
+    gathered = []
+    for card, dev, out in outs:
+        with tracing.span("upscale.gather", dev, card=card):
+            gathered.append(out.to(first, non_blocking=True))
+    with tracing.span("upscale.between", first):
+        return torch.cat(gathered)
+
+
+def _between(devices):
+    """The span of the first card's own work between the passes of a call
+    split over ``devices``; none for a call on one device."""
+    if devices is None or len(devices) <= 1:
+        return contextlib.nullcontext()
+    return tracing.span("upscale.between", devices[0])
 
 
 def apply_sliced(apply_fn, slices: torch.Tensor, chunk: int = 0,
@@ -143,8 +177,9 @@ def pass1_volume(gen1, lr_vol: torch.Tensor, stage: int | None = None,
     """(Z, Y, X, C) → intermediate (Z, Y·s, X·s, 1) via xy slices.
     ``programs`` (a :class:`CardPrograms`) replays each card's share of a
     split over distinct cards."""
-    return apply_sliced(_per_device(gen1, devices, programs, stage=stage),
-                        lr_vol, chunk, devices)
+    with tracing.span("upscale.pass", pass_no=1):
+        return apply_sliced(_per_device(gen1, devices, programs,
+                                        stage=stage), lr_vol, chunk, devices)
 
 
 def _with_velocity(vol: torch.Tensor, lr_vel: torch.Tensor | None,
@@ -165,10 +200,12 @@ def pass2_volume(gen2, interm: torch.Tensor, lr_vel: torch.Tensor | None,
                  devices=None, programs=None) -> torch.Tensor:
     """Intermediate (Z, Ys, Xs, 1) [+ LR velocity (Z, Y, X, 3)] →
     final (Z·s, Ys, Xs, 1) via xz slices (z-axis refinement)."""
-    vol_in = _with_velocity(interm, lr_vel, [0, 2, 1], gen2.dtype)
-    slices = vol_in.permute(1, 0, 2, 3)              # (Ys, Z, Xs, C)
-    out = apply_sliced(_per_device(gen2, devices, programs, stage=stage),
-                       slices, chunk, devices)
+    with tracing.span("upscale.pass", pass_no=2):
+        with _between(devices):
+            vol_in = _with_velocity(interm, lr_vel, [0, 2, 1], gen2.dtype)
+        slices = vol_in.permute(1, 0, 2, 3)          # (Ys, Z, Xs, C)
+        out = apply_sliced(_per_device(gen2, devices, programs, stage=stage),
+                           slices, chunk, devices)
     return out.permute(1, 0, 2, 3)                   # (Zs, Ys, Xs, 1)
 
 
@@ -177,10 +214,12 @@ def pass3_volume(gen3, vol: torch.Tensor, lr_vel: torch.Tensor | None,
                  programs=None) -> torch.Tensor:
     """Constant-resolution refinement over yz slices of the full-res volume
     (Zs, Ys, Xs, 1); slice channels [d, v_w=vz, v_h=vy, v_out=vx]."""
-    vol_in = _with_velocity(vol, lr_vel, [2, 1, 0], gen3.dtype)
-    slices = vol_in.permute(2, 1, 0, 3)              # (Xs, Ys, Zs, C)
-    out = apply_sliced(_per_device(gen3, devices, programs), slices, chunk,
-                       devices)
+    with tracing.span("upscale.pass", pass_no=3):
+        with _between(devices):
+            vol_in = _with_velocity(vol, lr_vel, [2, 1, 0], gen3.dtype)
+        slices = vol_in.permute(2, 1, 0, 3)          # (Xs, Ys, Zs, C)
+        out = apply_sliced(_per_device(gen3, devices, programs), slices,
+                           chunk, devices)
     return out.permute(2, 1, 0, 3)
 
 
@@ -448,6 +487,10 @@ class GraphedUpscaler:
             OrderedDict()
 
     def __call__(self, lr_vol) -> torch.Tensor:
+        with tracing.span("upscale.frame", self.device):
+            return self._call(lr_vol)
+
+    def _call(self, lr_vol) -> torch.Tensor:
         lr_vol = torch.as_tensor(lr_vol)
         key = (tuple(lr_vol.shape), lr_vol.dtype)
         if self.split:

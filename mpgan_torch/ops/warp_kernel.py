@@ -41,6 +41,8 @@ decided once at import; :data:`STREAM_SOURCE` says which), and the device
 made current inside the C entry only when it is not. The backward's tile is
 chosen here (:func:`bwd_tile`); its gradients are fixed-point sums, the
 same bits on every call (the note at the top of ``csrc/warp.cu``).
+Each backward of :class:`AdvectFast` and :class:`AlignTripletFast` is a
+span, ``warp.bwd`` (:mod:`mpgan_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ import functools
 
 import torch
 
-from mpgan_torch import _build
+from mpgan_torch import _build, tracing
 from mpgan_torch.ops.warp import advect_2d
 
 # Cells; per-frame backtrace bound, shared with LossConfig.warp_max_disp.
@@ -362,8 +364,9 @@ class AdvectFast(torch.autograd.Function):
     def backward(ctx, g):
         field, vel = ctx.saved_tensors
         need_f, need_v = ctx.needs_input_grad[:2]
-        gf, gv = advect_2d_kernel_bwd(g, field, vel, ctx.dt, ctx.max_disp,
-                                      need_f, need_v)
+        with tracing.span("warp.bwd"):
+            gf, gv = advect_2d_kernel_bwd(g, field, vel, ctx.dt,
+                                          ctx.max_disp, need_f, need_v)
         return gf, gv, None, None
 
 
@@ -394,8 +397,9 @@ class AlignTripletFast(torch.autograd.Function):
     def backward(ctx, g):
         prev, nxt, vel = ctx.saved_tensors
         need_p, need_c, need_n, need_v = ctx.needs_input_grad[:4]
-        d_prev, d_nxt, d_vel = align_triplet_kernel_bwd(
-            g, prev, nxt, vel, ctx.max_disp, need_p or need_n, need_v)
+        with tracing.span("warp.bwd"):
+            d_prev, d_nxt, d_vel = align_triplet_kernel_bwd(
+                g, prev, nxt, vel, ctx.max_disp, need_p or need_n, need_v)
         return (d_prev if need_p else None,
                 g[..., 1:2] if need_c else None,
                 d_nxt if need_n else None, d_vel, None)

@@ -21,24 +21,22 @@ Profiles (torch.profiler, CPU + CUDA activities) after warm-up:
   and replaying CUDA graphs, each after 17 warm-up steps (every program
   captured): first 16 steps without the profiler (wall ms per step
   between CUDA events; stepping eagerly also the host time of the warp
-  path, forward and backward apart, timed by wrapping them:
-  :func:`warp_path_probe`), then 8 steps under the profiler
-  (:func:`train_profile`: kernel time by name, device busy share, host
-  launches per step, the warp kernels per step by name; stepping eagerly
-  also the warp path's device launches and device time, forward and
-  backward apart, from ``record_function`` ranges around the same
-  wrapped calls, the backward kernel's, which the trace leaves out of
-  its range, by name and by its launch counter; and NCCL's kernels by
-  name, which a rank of a process group runs). The profiler adds host
-  cost to every op, so its busy share is a lower bound for the
-  unprofiled run.
+  path, forward and backward apart: the program's spans ``warp.align``
+  and ``warp.bwd``, :mod:`mpgan_torch.tracing`), then 8 steps under the
+  profiler (:func:`train_profile`: kernel time by name, device busy
+  share, host launches per step, the warp kernels per step by name;
+  stepping eagerly also the warp path's device launches and device time,
+  forward and backward apart, from the same spans' ranges in the trace,
+  the backward kernel's, which the trace leaves out of its range, by name
+  and by its launch counter; and NCCL's kernels by name, which a rank of
+  a process group runs). The profiler adds host cost to every op, so its
+  busy share is a lower bound for the unprofiled run.
 
 Prints one JSON object, and also writes it to ``out.json`` when a path is
 given. Needs a card; imports no JAX. :func:`solver_profile` (a solver
 step's busy share and host launches) serves ``chip_smoke.py`` phase 12d.
 """
 
-import contextlib
 import json
 import os
 import re
@@ -48,16 +46,16 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
-from mpgan_torch import config
+from mpgan_torch import config, tracing
 from mpgan_torch.data.pipeline import TileCreator
 from mpgan_torch.infer import assemble, load
 from mpgan_torch.ops import warp_kernel as wk
-from mpgan_torch.train import loop, losses, recipe
+from mpgan_torch.train import loop, recipe
 
-# record_function ranges of warp_path_probe
-PROBE_RANGES = ("warp_path_fwd", "warp_path_bwd")
+# the program's spans around the warp path's forward and backward
+PROBE_RANGES = ("warp.align", "warp.bwd")
 # the CUDA API calls (cuda* and cu*) that put work on a stream: a step's
 # host launches
 LAUNCH_CALLS = re.compile(
@@ -97,12 +95,12 @@ def profiled(fn, n):
 def _tables(avgs):
     """key_averages → (kernels by self device µs, aten ops by inclusive
     device µs, summed kernel µs). The device side of a ``record_function``
-    range (:func:`warp_path_probe`) is a span, not a kernel, and is left
-    out."""
+    range (a span of :mod:`mpgan_torch.tracing`) is a span, not a kernel,
+    and is left out."""
     kernels = sorted(((e.key, e.self_device_time_total, e.count)
                       for e in avgs
                       if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.key not in PROBE_RANGES),
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda r: -r[1])
     ops = sorted(((e.key, e.device_time_total, e.count) for e in avgs
                   if e.key.startswith("aten::")), key=lambda r: -r[1])
@@ -112,44 +110,6 @@ def _tables(avgs):
 def _table(rows, n, per="frame", k=15):
     return [{"name": name, f"device_ms_per_{per}": us / n / 1e3,
              f"calls_per_{per}": c / n} for name, us, c in rows[:k] if us > 0]
-
-
-@contextlib.contextmanager
-def warp_path_probe(ranges: bool):
-    """Wrap the train step's warp path while the block runs: its forward
-    (``losses.align_triplet``, the whole alignment of a triplet) and the
-    backward of the warp's autograd Functions. Yields the host seconds
-    spent inside each, ``{"fwd": s, "bwd": s}``; with ``ranges`` every call
-    also runs inside a ``record_function`` range ``warp_path_fwd`` /
-    ``warp_path_bwd``, which the profiler's trace attributes the device
-    work to."""
-    host = {"fwd": 0.0, "bwd": 0.0}
-
-    def wrap(fn, key):
-        name = f"warp_path_{key}"
-
-        def wrapped(*a, **k):
-            t = time.perf_counter()
-            try:
-                if ranges:
-                    with record_function(name):
-                        return fn(*a, **k)
-                return fn(*a, **k)
-            finally:
-                host[key] += time.perf_counter() - t
-        return wrapped
-
-    fns = (wk.AdvectFast, wk.AlignTripletFast)
-    saved = [(losses, "align_triplet", losses.align_triplet)] + [
-        (c, "backward", c.__dict__["backward"]) for c in fns]
-    losses.align_triplet = wrap(losses.align_triplet, "fwd")
-    for c in fns:
-        c.backward = staticmethod(wrap(c.backward, "bwd"))
-    try:
-        yield host
-    finally:
-        for obj, attr, val in saved:
-            setattr(obj, attr, val)
 
 
 def _range_device(events, name) -> tuple[float, int]:
@@ -281,7 +241,8 @@ def train_breakdown(dev, pass_no: int = 1, graphs: bool = False) -> dict:
     tr.fit(it, log_every=it)
 
     n = 16
-    with warp_path_probe(ranges=False) as host:
+    tracing.clear()
+    with tracing.enable():
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -291,17 +252,18 @@ def train_breakdown(dev, pass_no: int = 1, graphs: bool = False) -> dict:
         torch.cuda.synchronize()
         it += n
     step_ms = start.elapsed_time(end) / n
-    fwd_host_ms = host["fwd"] * 1e3 / n
-    bwd_host_ms = host["bwd"] * 1e3 / n
+    fwd_host_ms, bwd_host_ms = (
+        sum(s["host_end_ns"] - s["host_start_ns"] for s in tracing.spans()
+            if s["name"] == name) / 1e6 / n for name in PROBE_RANGES)
+    tracing.clear()
 
     m = 8
     wk.launches = wk.bwd_launches = 0
-    # a replay runs no Python: the wrapped calls, and their ranges, run
-    # only where the trainer steps eagerly
-    with warp_path_probe(ranges=True):
-        prof, events = train_profile(tr, it, m)
-    fwd_us, fwd_n = _range_device(events, "warp_path_fwd")
-    bwd_us, bwd_n = _range_device(events, "warp_path_bwd")
+    # a replay runs no Python: the spans, and their ranges, run only
+    # where the trainer steps eagerly
+    prof, events = train_profile(tr, it, m)
+    fwd_us, fwd_n = _range_device(events, PROBE_RANGES[0])
+    bwd_us, bwd_n = _range_device(events, PROBE_RANGES[1])
     # by name: the profiler leaves a launch made through ctypes in the
     # autograd engine's thread out of the range around it
     warp_bwd_ms = sum(v for k, v in prof["warp_kernel_device_ms_by_name"]

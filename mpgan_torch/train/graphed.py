@@ -52,6 +52,10 @@ and the schedule, which the ranks share.
 and so register no generator, and of the solver's step and datagen frame
 (:mod:`mpgan_torch.solver.graphed`, :mod:`mpgan_torch.solver.datagen`),
 whose inflow noise draws from a registered generator.
+
+Spans (:mod:`mpgan_torch.tracing`): ``graph.capture``, every capture;
+``train.replay``, the host's launch of a train program's replay, with the
+replay's interval on the card.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ import gc
 
 import torch
 
+from mpgan_torch import tracing
 from mpgan_torch.ops import warp_kernel
 
 
@@ -108,9 +113,9 @@ class Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(device), torch.cuda.graph(
-                    graph, stream=torch.cuda.Stream(device),
-                    capture_error_mode="thread_local"):
+            with tracing.span("graph.capture"), torch.cuda.device(device), \
+                    torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
+                                     capture_error_mode="thread_local"):
                 self.out = fn()
         finally:
             if collecting:
@@ -157,7 +162,8 @@ class Program:
         if self.graph is None:
             self.graph = Graph(self._run, self.step.device, self.generator)
             self.step.check_launches(self.graph.launches)
-        return dict(self.graph.replay())
+        with tracing.span("train.replay", self.step.device):
+            return dict(self.graph.replay())
 
     def release(self) -> None:
         if self.graph is not None:

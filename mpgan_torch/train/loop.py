@@ -61,6 +61,11 @@ checkpoint and at the end, and after its first checkpoint crashes
 (``MPGAN_FAIL_ONCE``) or hangs (``MPGAN_HANG_ONCE``) once when asked to,
 each leaving a sentinel file so that the restarted run goes through.
 ``profileDir`` traces ``fit`` with ``torch.profiler`` into that directory.
+Spans (:mod:`mpgan_torch.tracing`; in the profiler's trace as ranges of
+their names): ``train.step``, one iteration of ``fit``, the parent of
+``train.replay`` (:mod:`mpgan_torch.train.graphed`) or ``train.eager`` (a
+step run eagerly, timed on the card) and of ``train.read_metrics``, the
+device-to-host read of the metrics at a log point.
 ``debugNans`` checks every loss and gradient before its optimizer step and
 raises ``FloatingPointError`` naming the update and the step at the first
 non-finite value. That is coarser than JAX's ``jax_debug_nans``, which
@@ -99,6 +104,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mpgan_torch import tracing
 from mpgan_torch.config import Config
 from mpgan_torch.data.pipeline import TileCreator
 from mpgan_torch.device import resolve_device
@@ -486,7 +492,8 @@ class TrainStep:
                     r1: bool) -> dict:
         """:meth:`run` run eagerly, then the launch check."""
         n0, nb0 = warp_kernel.launches, warp_kernel.bwd_launches
-        metrics = self.run(alpha, rng, r1)
+        with tracing.span("train.eager", self.device):
+            metrics = self.run(alpha, rng, r1)
         self.check_launches((warp_kernel.launches - n0,
                              warp_kernel.bwd_launches - nb0))
         return metrics
@@ -853,23 +860,25 @@ class Trainer:
             else:
                 stage, alpha = self.n_stages, 1.0
             fade = alpha < 1.0 and stage > 1
-            rng.manual_seed(_step_seed(cfg.train.rand_seed, it,
-                                       pmesh.rank() if self.data_sharded
-                                       else None))
-            if self.programs is not None:
-                metrics = self.programs(fade, alpha)
-            else:
-                fn = self.rt.step_fade if fade else self.rt.step_stable
-                metrics = fn(alpha, rng)
-            it += 1
-            touch_heartbeat()
-            if (it - 1) // log_every != it // log_every or it >= iters:
-                last = read_metrics(metrics)
-                last.update(it=it - 1, stage=stage, alpha=float(alpha),
-                            wall=time.time() - t_start)
-                self.metrics_log.append(last)
-                if on_log:
-                    on_log(self, last)
+            with tracing.span("train.step", it=it):
+                rng.manual_seed(_step_seed(cfg.train.rand_seed, it,
+                                           pmesh.rank() if self.data_sharded
+                                           else None))
+                if self.programs is not None:
+                    metrics = self.programs(fade, alpha)
+                else:
+                    fn = self.rt.step_fade if fade else self.rt.step_stable
+                    metrics = fn(alpha, rng)
+                it += 1
+                touch_heartbeat()
+                if (it - 1) // log_every != it // log_every or it >= iters:
+                    with tracing.span("train.read_metrics"):
+                        last = read_metrics(metrics)
+                    last.update(it=it - 1, stage=stage, alpha=float(alpha),
+                                wall=time.time() - t_start)
+                    self.metrics_log.append(last)
+                    if on_log:
+                        on_log(self, last)
             save_every = cfg.train.save_interval
             if (on_checkpoint and save_every and it % save_every == 0
                     and it < iters):

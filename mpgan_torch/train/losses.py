@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from mpgan_torch import tracing
 from mpgan_torch.ops.warp import advect_2d
 from mpgan_torch.ops.warp_kernel import align_triplet_fast
 
@@ -131,11 +132,13 @@ def align_triplet(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
 
     ``use_kernel``: the clamped fast warp (:func:`align_triplet_fast`: for
     CUDA tensors one fused kernel launch forward and one backward),
-    displacement clamped to ±max_disp px.
+    displacement clamped to ±max_disp px. A span, ``warp.align``
+    (:mod:`mpgan_torch.tracing`).
     """
-    if use_kernel:
-        return align_triplet_fast(prev, cur, nxt, vel_hr, max_disp)
-    warped_prev = advect_2d(prev, vel_hr, 1.0)
-    warped_next = advect_2d(nxt, vel_hr, -1.0)
-    return torch.cat([warped_prev, cur.to(warped_prev.dtype), warped_next],
-                     dim=-1)
+    with tracing.span("warp.align"):
+        if use_kernel:
+            return align_triplet_fast(prev, cur, nxt, vel_hr, max_disp)
+        warped_prev = advect_2d(prev, vel_hr, 1.0)
+        warped_next = advect_2d(nxt, vel_hr, -1.0)
+        return torch.cat([warped_prev, cur.to(warped_prev.dtype),
+                          warped_next], dim=-1)
