@@ -44,7 +44,11 @@ its share; ``upscale.gather`` (``card``), the copy of its result back,
 which runs on that card (the first card's own share copies nothing);
 ``upscale.between``, the first card's own work after the gather (the
 concatenation, and before pass 2 or 3 the velocity resize), begun after
-the waits for the other cards are enqueued.
+the waits for the other cards are enqueued. A pass enqueues all its
+scatters before any share: PyTorch runs a copy between cards on the
+source card's stream, behind whatever is queued there, so a scatter
+queued after the first card's share would hold the other cards until
+that share ends.
 """
 
 from __future__ import annotations
@@ -110,17 +114,22 @@ def _per_device(gen, devices, programs=None, **kw):
 
 def _split_apply(share_fn, x: torch.Tensor, devices) -> torch.Tensor:
     """``share_fn(block, device)`` over ``x`` split into one contiguous
-    block per device; every launch is enqueued before any result is
-    gathered, so the devices overlap. Each step is a span (module
-    docstring)."""
+    block per device. Every scatter is enqueued before any share, and every
+    share before any result is gathered, so the devices overlap. A copy
+    between cards runs on the source card's stream behind whatever is
+    queued there: a scatter enqueued after the first card's own share
+    would start the other cards only when that share ends. Each step is a
+    span (module docstring)."""
     first = devices[0]
-    outs = []
+    parts = []
     for card, (part, dev) in enumerate(zip(
             torch.tensor_split(x, len(devices)), devices)):
         if not part.shape[0]:
             continue
         with tracing.span("upscale.scatter", first, card=card):
-            part = part.to(dev, non_blocking=True)
+            parts.append((card, dev, part.to(dev, non_blocking=True)))
+    outs = []
+    for card, dev, part in parts:
         with tracing.span("upscale.share", dev, card=card):
             outs.append((card, dev, share_fn(part, dev)))
     gathered = []

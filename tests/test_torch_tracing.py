@@ -10,7 +10,8 @@
   among the profiler's events, starting within 5 ms of the store's start.
 - The program's spans on the CPU: ``Trainer.fit`` stepping eagerly and
   through the graphed programs (the capture primitive stubbed), and a
-  graphed upscaler split over ``cpu:0..2`` as distinct cards.
+  graphed upscaler split over ``cpu:0..2`` as distinct cards, whose every
+  pass enqueues all its scatters before any share.
 - Each reader of ``port_bench/metrics/`` over a synthetic span list with a
   known answer, and None on an empty list or where the program has no
   spans.
@@ -288,6 +289,26 @@ def test_split_upscaler_spans_over_cpu_cards(monkeypatch):
                 assert per[(name, p, card)] == 1
     assert per[("upscale.between", 1, None)] == 1
     assert per[("upscale.between", 2, None)] == 2
+
+
+def test_split_upscaler_scatters_every_share_before_any_share_runs(
+        monkeypatch):
+    # a copy between cards runs on the first card's stream behind what is
+    # queued there: a scatter after the first card's share holds the rest
+    up, frame = _split_upscaler(monkeypatch, k=3)
+    for _ in range(2):
+        up(frame)
+    with tracing.enable():
+        up(frame)
+    rows = tracing.spans()
+    for p in (1, 2):
+        scatters = [s for s in rows if s["name"] == "upscale.scatter"
+                    and s["attrs"]["pass_no"] == p]
+        shares = [s for s in rows if s["name"] == "upscale.share"
+                  and s["attrs"]["pass_no"] == p]
+        assert len(scatters) == len(shares) == 3
+        assert max(s["host_end_ns"] for s in scatters) \
+            <= min(s["host_start_ns"] for s in shares)
 
 
 # ----------------------------------------------------------- the readers
