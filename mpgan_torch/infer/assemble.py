@@ -37,7 +37,9 @@ per call costs more than its replays save.
 
 Spans (:mod:`mpgan_torch.tracing`): ``upscale.frame``, one call of a
 graphed upscaler, timed on its card; ``upscale.pass`` (``pass_no``), one
-pass. Within a pass split over several devices, each timed on the stream
+pass, timed on its card when it runs on one (inside a captured program by
+events recorded into the graph, read for the last traced replay). Within a
+pass split over several devices, each timed on the stream
 its work runs on: ``upscale.scatter`` (``card``), the copy of a share from
 the first card; ``upscale.share`` (``card``), a card's call or replay on
 its share; ``upscale.gather`` (``card``), the copy of its result back,
@@ -148,6 +150,13 @@ def _between(devices):
     return tracing.span("upscale.between", devices[0])
 
 
+def _pass_span(pass_no: int, vol: torch.Tensor, devices):
+    """The span of one pass over ``vol``, timed on its card unless the
+    pass is split over several."""
+    device = None if spans_cards(devices) else vol.device
+    return tracing.span("upscale.pass", device, pass_no=pass_no)
+
+
 def apply_sliced(apply_fn, slices: torch.Tensor, chunk: int = 0,
                  devices=None) -> torch.Tensor:
     """Run a per-slice model over a (N, H, W, C) slice stack.
@@ -186,7 +195,7 @@ def pass1_volume(gen1, lr_vol: torch.Tensor, stage: int | None = None,
     """(Z, Y, X, C) → intermediate (Z, Y·s, X·s, 1) via xy slices.
     ``programs`` (a :class:`CardPrograms`) replays each card's share of a
     split over distinct cards."""
-    with tracing.span("upscale.pass", pass_no=1):
+    with _pass_span(1, lr_vol, devices):
         return apply_sliced(_per_device(gen1, devices, programs,
                                         stage=stage), lr_vol, chunk, devices)
 
@@ -209,7 +218,7 @@ def pass2_volume(gen2, interm: torch.Tensor, lr_vel: torch.Tensor | None,
                  devices=None, programs=None) -> torch.Tensor:
     """Intermediate (Z, Ys, Xs, 1) [+ LR velocity (Z, Y, X, 3)] →
     final (Z·s, Ys, Xs, 1) via xz slices (z-axis refinement)."""
-    with tracing.span("upscale.pass", pass_no=2):
+    with _pass_span(2, interm, devices):
         with _between(devices):
             vol_in = _with_velocity(interm, lr_vel, [0, 2, 1], gen2.dtype)
         slices = vol_in.permute(1, 0, 2, 3)          # (Ys, Z, Xs, C)
@@ -223,7 +232,7 @@ def pass3_volume(gen3, vol: torch.Tensor, lr_vel: torch.Tensor | None,
                  programs=None) -> torch.Tensor:
     """Constant-resolution refinement over yz slices of the full-res volume
     (Zs, Ys, Xs, 1); slice channels [d, v_w=vz, v_h=vy, v_out=vx]."""
-    with tracing.span("upscale.pass", pass_no=3):
+    with _pass_span(3, vol, devices):
         with _between(devices):
             vol_in = _with_velocity(vol, lr_vel, [2, 1, 0], gen3.dtype)
         slices = vol_in.permute(2, 1, 0, 3)          # (Xs, Ys, Zs, C)

@@ -55,7 +55,9 @@ whose inflow noise draws from a registered generator.
 
 Spans (:mod:`mpgan_torch.tracing`): ``graph.capture``, every capture;
 ``train.replay``, the host's launch of a train program's replay, with the
-replay's interval on the card.
+replay's interval on the card. A span given a card inside a captured
+function (the upscaler's passes) is timed on the card at every replay by
+events recorded into the graph, read for the last traced replay.
 """
 
 from __future__ import annotations
@@ -77,7 +79,11 @@ class Graph:
     a function that draws nothing) registered; :meth:`replay` runs it and
     returns the outputs the capture returned, which every replay
     overwrites; :meth:`reset` releases the graph and its memory pool.
-    ``launches`` is (forward, backward) warp kernel launches in the graph.
+    ``launches`` is (forward, backward) warp kernel launches in the graph;
+    ``spans`` (a :class:`mpgan_torch.tracing.Captured`) the events that
+    the spans inside ``fn`` given a card recorded into it, which each
+    replay records again and :func:`mpgan_torch.tracing.spans` reads for
+    the last traced replay.
 
     The capture runs on a new stream of ``device`` with ``device`` current.
     ``torch.cuda.graph``'s own side stream is made once per process, on
@@ -113,7 +119,8 @@ class Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with tracing.span("graph.capture"), torch.cuda.device(device), \
+            with tracing.capture() as self.spans, \
+                    tracing.span("graph.capture"), torch.cuda.device(device), \
                     torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
                                      capture_error_mode="thread_local"):
                 self.out = fn()
@@ -127,7 +134,8 @@ class Graph:
         self.graph = graph
 
     def replay(self):
-        self.graph.replay()
+        with tracing.replay(self.spans):
+            self.graph.replay()
         warp_kernel.launches += self.launches[0]
         warp_kernel.bwd_launches += self.launches[1]
         return self.out

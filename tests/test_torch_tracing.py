@@ -15,9 +15,14 @@
 - Each reader of ``port_bench/metrics/`` over a synthetic span list with a
   known answer, and None on an empty list or where the program has no
   spans.
+- Captured spans, with the card's events and capture stood in for: the
+  last traced replay's read by ``spans()``, nested and timed as captured,
+  under the span open at their replay; an untraced replay forgets the one
+  before.
 - On a card (marked ``cuda``; skipped without one): a span inside a CUDA
-  graph capture records nothing, and a replay's span has a device
-  interval. No JAX is imported here, so on a card's machine ``python -m
+  graph capture stores nothing, and a replay's span has a device
+  interval; a captured three-pass upscaler's replays time each pass. No
+  JAX is imported here, so on a card's machine ``python -m
   pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py -m
   cuda`` runs it.
 """
@@ -46,7 +51,8 @@ torch.set_num_threads(1)
 
 READERS = ("upscaler.host_ms_per_frame", "upscaler.share_ms_per_frame",
            "upscaler.card0_only_ms_per_frame", "train.replay_gap_pct",
-           "train.launch_us_per_step")
+           "train.launch_us_per_step", "upscaler.pass3_ms_per_frame",
+           "upscaler.pass3_roofline")
 
 
 @pytest.fixture(autouse=True)
@@ -361,6 +367,23 @@ SYNTHETIC = {
          _span("train.replay", 0.030, (0, 6, 11)),
          _span("train.step", 1.0)],
         {"units": 2, "window_s": 1.0}, 20.0),
+    # two frames' pass 3 of 10 and 30 device ms; pass 2 and an untimed
+    # pass 3 left out
+    "upscaler.pass3_ms_per_frame": (
+        [_span("upscale.pass", 1, (0, 0, 10), {"pass_no": 3}),
+         _span("upscale.pass", 1, (0, 20, 50), {"pass_no": 3}),
+         _span("upscale.pass", 1, (0, 10, 20), {"pass_no": 2}),
+         _span("upscale.pass", 1, None, {"pass_no": 3})],
+        {"units": 2, "window_s": 1.0}, 20.0),
+    # the same spans: a least time of 5 ms a frame (the operations' bound
+    # over the bytes' 1 ms) against 20 ms a frame
+    "upscaler.pass3_roofline": (
+        [_span("upscale.pass", 1, (0, 0, 10), {"pass_no": 3}),
+         _span("upscale.pass", 1, (0, 20, 50), {"pass_no": 3}),
+         _span("upscale.pass", 1, (0, 10, 20), {"pass_no": 2}),
+         _span("upscale.pass", 1, None, {"pass_no": 3})],
+        {"units": 2, "window_s": 1.0, "pass3_flops_per_unit": 989e12 * 5e-3,
+         "pass3_bytes_per_unit": 3.35e12 * 1e-3}, 25.0),
 }
 
 
@@ -394,6 +417,123 @@ def test_gap_is_the_mean_over_cards():
     assert read({"units": 2, "window_s": 0.01}, rows) == pytest.approx(10.0)
 
 
+# ------------------------------------------------------- captured spans
+
+
+class _FakeEvent:
+    """A timing event on a counter that each record advances."""
+    clock = 0
+
+    def __init__(self):
+        self.t = None
+
+    def record(self):
+        _FakeEvent.clock += 1
+        self.t = _FakeEvent.clock
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return float(other.t - self.t)
+
+
+class _FakeCapture:
+    """A graph captured with ``tracing.capture()`` whose replay records the
+    captured events again in capture order, as the card does."""
+
+    def __init__(self, fn, capturing):
+        with tracing.capture() as self.spans:
+            capturing["on"] = True
+            try:
+                fn()
+            finally:
+                capturing["on"] = False
+        self.order = sorted((ev for row in self.spans.rows
+                             for ev in row[4:6]), key=lambda e: e.t)
+
+    def replay(self):
+        with tracing.replay(self.spans):
+            for ev in self.order:
+                ev.record()
+
+
+def test_the_last_traced_replay_s_captured_spans_are_read_at_spans(
+        monkeypatch):
+    """With the card's events and capture stood in for: a capture stores
+    nothing; a traced replay's captured spans enter the store at the next
+    ``spans()`` unless a later replay came first (which records their
+    events anew, so only the last is read and no replay waits), under the
+    span open when their replay began, with their capture-time nesting and
+    attributes and device intervals inside it, in order; an untraced
+    replay forgets the one before it."""
+    capturing = {"on": False}
+    dev = torch.device("cuda", 0)
+
+    def event(device, external=False):
+        ev = _FakeEvent()
+        ev.record()
+        return ev
+    monkeypatch.setattr(tracing, "_event", event)
+    monkeypatch.setattr(tracing, "_capturing", lambda: capturing["on"])
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+    def fn():
+        for p in (1, 2, 3):
+            with tracing.span("upscale.pass", dev, pass_no=p):
+                with tracing.span("inner", dev, k=p):
+                    pass
+            with tracing.span("untimed"):
+                pass
+    g = _FakeCapture(fn, capturing)
+    assert [r[:3] for r in g.spans.rows] == [
+        ["upscale.pass", {"pass_no": 1}, None],
+        ["inner", {"pass_no": 1, "k": 1}, 0],
+        ["upscale.pass", {"pass_no": 2}, None],
+        ["inner", {"pass_no": 2, "k": 2}, 2],
+        ["upscale.pass", {"pass_no": 3}, None],
+        ["inner", {"pass_no": 3, "k": 3}, 4]]
+    assert tracing.spans() == []
+    g.replay()
+    with tracing.enable():
+        g.replay()
+    g.replay()
+    assert tracing.spans() == []
+    with tracing.enable():
+        for i in range(3):
+            with tracing.span("upscale.frame", dev, i=i):
+                g.replay()
+        rows = tracing.spans()
+        for i in range(3, 5):
+            with tracing.span("upscale.frame", dev, i=i):
+                g.replay()
+            rows = tracing.spans()
+    frames = [s for s in rows if s["name"] == "upscale.frame"]
+    assert [s["attrs"]["i"] for s in frames] == [0, 1, 2, 3, 4]
+    by_id = {s["id"]: s for s in rows}
+    for frame in frames:
+        mine = [s for s in rows if s["parent"] == frame["id"]]
+        if frame["attrs"]["i"] < 2:
+            assert mine == []
+            continue
+        assert [s["attrs"]["pass_no"] for s in mine] == [1, 2, 3]
+        assert all(s["attrs"]["i"] == frame["attrs"]["i"] for s in mine)
+        for a, b in zip(mine, mine[1:]):
+            assert a["device_end_ms"] <= b["device_start_ms"]
+        assert frame["device_start_ms"] <= mine[0]["device_start_ms"] \
+            and mine[-1]["device_end_ms"] <= frame["device_end_ms"]
+        for s in mine:
+            (inner,) = [c for c in rows if c["parent"] == s["id"]]
+            assert inner["name"] == "inner"
+            assert by_id[inner["parent"]] is s
+            assert s["device_start_ms"] < inner["device_start_ms"] \
+                < inner["device_end_ms"] < s["device_end_ms"]
+            assert s["host_start_ns"] >= frame["host_start_ns"]
+    assert len(rows) == 5 + 3 * 6
+    # read once: a second call adds nothing
+    assert len(tracing.spans()) == len(rows)
+
+
 # ------------------------------------------------------------------ card
 
 
@@ -420,3 +560,50 @@ def test_cuda_capture_records_nothing_and_a_replay_has_an_interval():
         assert 0 <= a["device_start_ms"] < a["device_end_ms"] \
             <= b["device_start_ms"]
     assert float(g.out) == 2 * (1 << 20)
+
+
+@pytest.mark.cuda
+def test_cuda_replays_of_a_captured_three_pass_upscaler_time_each_pass():
+    """A three-pass upscaler captured on the card (64³ → 256³ bf16, G3 at
+    its published widths): under ``tracing.enable()`` each replay read by
+    ``spans()`` gives three ``upscale.pass`` rows, ordered, inside the
+    frame's device interval and summing to within 2% of it (the frame adds
+    the copies in and out and the graph's launch); a replay followed by
+    another before ``spans()`` gives none; the capture stores none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    g1, g2 = (make(2, 32, 2, dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+              for make in (TG.make_pass1, TG.make_pass2))
+    g3 = TG.make_pass3(32, 2, dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    g1, g2, g3 = (g.to(dev).eval().requires_grad_(False)
+                  for g in (g1, g2, g3))
+    up = assemble.make_graphed_upscaler(g1, g2, 4, gen3=g3)
+    frame = torch.rand((64, 64, 64, 4), device=dev)
+    for _ in range(2):
+        up(frame)
+    assert tracing.spans() == []
+    with tracing.enable():
+        for _ in range(2):
+            up(frame)
+        rows = tracing.spans()
+        for _ in range(3):
+            up(frame)
+            rows = tracing.spans()
+    assert "graph.capture" not in {s["name"] for s in rows}
+    frames = [s for s in rows if s["name"] == "upscale.frame"]
+    assert len(frames) == 5
+    assert [s for s in rows if s["parent"] == frames[0]["id"]] == []
+    for frame_row in frames[1:]:
+        passes = [s for s in rows if s["parent"] == frame_row["id"]]
+        assert [(s["name"], s["attrs"]["pass_no"]) for s in passes] == [
+            ("upscale.pass", 1), ("upscale.pass", 2), ("upscale.pass", 3)]
+        assert all(s["device"] == frame_row["device"] for s in passes)
+        assert frame_row["device_start_ms"] <= passes[0]["device_start_ms"]
+        for a, b in zip(passes, passes[1:]):
+            assert a["device_start_ms"] < a["device_end_ms"] \
+                <= b["device_start_ms"]
+        assert passes[-1]["device_end_ms"] <= frame_row["device_end_ms"]
+        total = sum(sp.device_ms(s) for s in passes)
+        assert total == pytest.approx(sp.device_ms(frame_row), rel=0.02)
