@@ -40,6 +40,19 @@ exit, and no result line:
             slower on the host, and later phases time host-paced work
 2b single  advect_2d_fast forward and backward at B=16 64², the launch
             counts reset just before and read just after: 1 and 1
+2c conv     the generator's NHWC conv kernels (csrc/conv.cu through
+            mpgan_torch.ops.conv_kernel) at the frame cells' layers
+            (CONV_LAYERS: 4x G1 and G2, 8x G1 and G2 at 512², G3 on its
+            yz view), bf16 inputs read at the views the passes hand over:
+            each wrapper against its plain version (conv_*_ref, float32
+            on the card, TF32 off) within one bf16 ulp of each value plus
+            1e-4 of the largest; then each layer's ms per call (the
+            kernel, cuDNN's composition of F.conv2d with ATen's ReLU and
+            adds, the plain version), each the median, min and max of 5
+            windows, a window one replay of a CUDA graph holding the
+            calls (back-to-back eager calls time the host wherever a call
+            is shorter than its launch), beside its bound (each tensor
+            read or written once in bf16 at 3.35 TB/s)
 3. bundled  the exported 4x L1 pair on sim_1010c frame 12 (32³→128³): f32
             with TF32 off equals the port's CPU output (atol 1e-4); bf16
             keeps PSNR ≥ 34.5 dB against the ground truth
@@ -53,7 +66,11 @@ exit, and no result line:
             two-pass values); the bf16 − float32 gap, and after phase 9
             each way's gap to phase 9's values for the same chain
 4. bench    the main path at the bench shape: 4x, 64³→256³, bf16, base 32,
-            2 res blocks, 2 stages, bundled weights; voxels/s; then at
+            2 res blocks, 2 stages, bundled weights; the conv kernels'
+            launch count reset just before an eager frame and a graphed
+            upscaler's replayed frame and read just after: 10 a 4x
+            generator call, 2 calls a frame, no cuDNN forward; voxels/s;
+            then at
             64³ and at 32³→128³ eager upscale_volume against the graphed
             upscaler (make_graphed_upscaler, its program captured) in
             turns (eager, graphed, graphed, eager) of 5 windows of 4
@@ -321,6 +338,36 @@ WARP_KERNELS = {
 }
 WARP_SHAPES = ((16, 64, 64, 200), (256, 256, 256, 20))  # B, H, W, timed calls
 SPREAD_WINDOWS = 5     # a kernel's ms per call: median, min, max of windows
+
+# The generator's conv kernels (csrc/conv.cu through ops/conv_kernel.py;
+# they replace no Pallas kernel: the JAX package leaves its convolutions
+# to XLA): the frame cells' layers at their main-path shapes, as (layer,
+# kind, slices, h, w, cin, cout, skip width or the head's skip factors,
+# the pass's view of its volume for the input or the head's density).
+# Slices are the frames' own, but 8x pass 2's and G3's (512 of 512²) are
+# cut to 128 so that the float32 plain version fits beside them.
+CONV_LAYERS = (
+    ("4x g1 stem", "relu", 64, 64, 64, 4, 32, None, "xy"),
+    ("4x g1 s0 conv1", "relu", 64, 128, 128, 32, 16, None, None),
+    ("4x g1 s0 conv2+proj", "residual", 64, 128, 128, 16, 16, 32, None),
+    ("4x g1 s0 conv2", "residual", 64, 128, 128, 16, 16, 16, None),
+    ("4x g1 s1 conv1", "relu", 64, 256, 256, 16, 8, None, None),
+    ("4x g1 s1 conv2+proj", "residual", 64, 256, 256, 8, 8, 16, None),
+    ("4x g1 s1 conv2", "residual", 64, 256, 256, 8, 8, 8, None),
+    ("4x g1 head+skip", "head", 64, 256, 256, 8, 1, (4, 4), "xy"),
+    ("4x g2 stem", "relu", 256, 64, 256, 4, 32, None, "xz"),
+    ("4x g2 s1 conv2", "residual", 256, 256, 256, 8, 8, 8, None),
+    ("4x g2 head+skip", "head", 256, 256, 256, 8, 1, (4, 1), "xz"),
+    ("8x g1 s2 conv1", "relu", 64, 512, 512, 8, 8, None, None),
+    ("8x g1 s2 conv2", "residual", 64, 512, 512, 8, 8, 8, None),
+    ("8x g1 head+skip", "head", 64, 512, 512, 8, 1, (8, 8), "xy"),
+    ("8x g2 head+skip", "head", 128, 512, 512, 8, 1, (8, 1), "xz"),
+    ("g3 stem", "relu", 128, 512, 512, 4, 32, None, "yz"),
+    ("g3 conv1", "relu", 128, 512, 512, 32, 16, None, None),
+    ("g3 conv2+proj", "residual", 128, 512, 512, 16, 16, 32, None),
+    ("g3 conv2", "residual", 128, 512, 512, 16, 16, 16, None),
+    ("g3 head+skip", "head", 128, 512, 512, 16, 1, (1, 1), "yz"),
+)
 BF16_UNIT = 2.0 ** -7  # one bf16 unit in the last place of a value in [1, 2)
 
 
@@ -728,6 +775,134 @@ def phase_single_path(dev, wk):
     return counts, err
 
 
+def graph_ms(fn, dev, windows=SPREAD_WINDOWS, window_ms=20.0):
+    """Device ms per call of ``fn()``: about ``window_ms`` of calls
+    captured in one CUDA graph, each window one replay between CUDA events
+    → the median, min and max over ``windows`` windows. Eager calls back
+    to back would time the host wherever a call's device work is shorter
+    than its launch."""
+    from mpgan_torch.train import graphed
+
+    n = max(1, min(200, int(window_ms / cuda_ms(fn, 3))))
+
+    def calls():
+        for _ in range(n):
+            out = fn()
+        return out
+    graph = graphed.Graph(calls, dev)
+    graph.replay()
+    ms = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(windows):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / n)
+    graph.reset()
+    ms.sort()
+    return {"ms": ms[len(ms) // 2], "ms_min": ms[0], "ms_max": ms[-1],
+            "calls_per_window": n}
+
+
+def _volume_view(view, b, h, w, c, gen, dev):
+    """A bf16 ``(b, h, w, c)`` batch of slices as a pass hands it over:
+    a contiguous volume's xy slices, or pass 2's (xz) and pass 3's (yz)
+    permuted views of one."""
+    shape = {"xy": (b, h, w, c), "xz": (h, b, w, c), "yz": (w, h, b, c)}
+    perm = {"xy": (0, 1, 2, 3), "xz": (1, 0, 2, 3), "yz": (2, 1, 0, 3)}
+    vol = torch.rand(shape[view], generator=gen, device=dev)
+    return vol.to(torch.bfloat16).permute(*perm[view])
+
+
+def conv_layer(layer, kind, b, h, w, cin, cout, extra, view, dev):
+    """One of :data:`CONV_LAYERS`: the wrapper against its plain version,
+    then the kernel's, cuDNN's and the plain version's ms per call
+    (:func:`graph_ms`) beside the layer's bound."""
+    from mpgan_torch.models import generator as G
+    from mpgan_torch.models import init
+    from mpgan_torch.ops import conv_kernel as ck
+    from mpgan_torch.ops.upsample import upsample_nchw
+
+    cpu_gen = torch.Generator().manual_seed(cin * 100 + cout)
+    gen = torch.Generator(device=dev).manual_seed(b + h + w)
+    conv = init.conv2d(cin, cout, 3, cpu_gen, padding=1)
+    with torch.no_grad():
+        conv.bias.normal_(0.0, 0.1, generator=cpu_gen)
+    conv = conv.to(dev)
+    x = (_volume_view(view, b, h, w, cin, gen, dev) if kind == "relu"
+         and view else _volume_view("xy", b, h, w, cin, gen, dev))
+    nbytes = x.numel() * 2 + b * h * w * cout * 2
+    nchw = x.permute(0, 3, 1, 2)
+    if kind == "relu":
+        calls = (lambda: ck.conv_relu(x, conv),
+                 lambda: F.relu(G._conv(conv, nchw)),
+                 lambda: ck.conv_relu_ref(x, conv))
+    elif kind == "residual":
+        block = G.ResBlock(extra, cout, cpu_gen).to(dev)
+        skip = _volume_view("xy", b, h, w, extra, gen, dev)
+        nbytes += skip.numel() * 2
+        skip_nchw = skip.permute(0, 3, 1, 2)
+
+        def library():
+            s = (skip_nchw if block.proj is None
+                 else G._conv(block.proj, skip_nchw))
+            return F.relu(s + G._conv(block.conv2, nchw))
+        calls = (lambda: ck.conv_residual(x, block.conv2, skip, block.proj),
+                 library,
+                 lambda: ck.conv_residual_ref(x, block.conv2, skip,
+                                              block.proj))
+    else:
+        fh, fw = extra
+        dens = _volume_view(view, b, h // fh, w // fw, 4, gen, dev)[..., :1]
+        nbytes += dens.numel() * 2
+        dens_nchw = dens.permute(0, 3, 1, 2)
+        bf = torch.bfloat16
+        calls = (lambda: ck.conv_head(x, conv, dens, extra, bf),
+                 lambda: (G._conv(conv, nchw)
+                          + upsample_nchw(dens_nchw, fh, fw)),
+                 lambda: ck.conv_head_ref(x, conv, dens, extra, bf))
+    kernel, library, plain = calls
+    cudnn = torch.backends.cudnn
+    tf32 = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            got, want = kernel().float(), plain().float()
+            gap_ = (got - want).abs()
+            tol = BF16_UNIT * want.abs() + 1e-4 * float(want.abs().max())
+            assert bool((gap_ <= tol).all()), (layer, float(gap_.max()))
+            row = {"layer": layer, "kind": kind,
+                   "shape": [b, h, w, cin, cout], "view": view,
+                   "max_abs_err": float(gap_.max()),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            del got, want, gap_, tol
+            row.update(graph_ms(kernel, dev))
+            row.update({f"library_{k}": v
+                        for k, v in graph_ms(library, dev).items()})
+            row["plain_ms"] = graph_ms(plain, dev, windows=3)["ms"]
+    finally:
+        cudnn.allow_tf32 = tf32
+    row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_conv(dev):
+    """2c: every layer of :data:`CONV_LAYERS` (:func:`conv_layer`) →
+    the rows."""
+    t0 = phase("2c conv kernels vs plain at the frame cells' layers; ms a "
+               "call against cuDNN and the byte bound")
+    rows = []
+    for spec in CONV_LAYERS:
+        row = conv_layer(*spec, dev)
+        print("   conv " + json.dumps(row), flush=True)
+        rows.append(row)
+    done(t0, layers=len(rows),
+         max_abs_err=max(r["max_abs_err"] for r in rows))
+    return rows
+
+
 def load_chain(dtype, device):
     from mpgan_torch import config
     from mpgan_torch.infer import load
@@ -861,6 +1036,7 @@ def phase_bench(dev):
     _, g1, g2 = load_chain("bfloat16", dev)
     lr = torch.from_numpy(np.random.default_rng(0).random(
         (64, 64, 64, 4), dtype=np.float32)).to(dev)
+    conv_counts = conv_launch_counts(g1, g2, lr)
     with torch.inference_mode():
         out = assemble.upscale_volume(g1, g2, lr, 4)
         assert out.shape == (256, 256, 256, 1) and out.dtype == torch.bfloat16
@@ -878,7 +1054,7 @@ def phase_bench(dev):
     peak = torch.cuda.max_memory_allocated()
     res = {"frame_ms": frame_ms, "voxels_per_s": 256 ** 3 / (frame_ms / 1e3),
            "pass1_ms": pass1_ms, "pass2_ms": pass2_ms,
-           "peak_mem_bytes": peak}
+           "peak_mem_bytes": peak, "conv_launches": conv_counts}
     small = torch.from_numpy(np.random.default_rng(1).random(
         (32, 32, 32, 4), dtype=np.float32)).to(dev)
     for x in (lr, small):
@@ -891,6 +1067,39 @@ def phase_bench(dev):
         res[k]["eager"]["frame_ms"], res[k]["graphed"]["frame_ms"])
         for k in ("64^3", "32^3")})
     return res
+
+
+def conv_launch_counts(g1, g2, lr):
+    """The conv kernels' launches over one eager 4x frame and over one
+    replayed frame of a graphed upscaler, each count reset just before
+    and read just after: 10 a generator call (the stem, 2 stages of 2
+    ResBlocks at 2 each, one head), one call a pass, and no cuDNN
+    forward."""
+    from mpgan_torch.infer import assemble
+    from mpgan_torch.models import generator as G
+    from mpgan_torch.ops import conv_kernel as ck
+
+    graphed = assemble.make_graphed_upscaler(g1, g2, 4)
+    for _ in range(2):                 # the eager first use, the capture
+        graphed(lr)
+    torch.cuda.synchronize()
+    n0 = (G.nhwc_forwards, G.cudnn_forwards)
+    ck.launches = 0                                    # path starts
+    with torch.inference_mode():
+        assemble.upscale_volume(g1, g2, lr, 4)
+    torch.cuda.synchronize()
+    eager = ck.launches                                # path ends
+    calls = (G.nhwc_forwards - n0[0], G.cudnn_forwards - n0[1])
+    assert calls == (2, 0) and eager == 10 * 2, (calls, eager)
+    ck.launches = 0                                    # path starts
+    graphed(lr)
+    torch.cuda.synchronize()
+    replayed = ck.launches                             # path ends
+    assert replayed == eager, (replayed, eager)
+    assert (G.nhwc_forwards, G.cudnn_forwards) == (n0[0] + 2, n0[1])
+    graphed.programs.popitem()[1].release()
+    return {"eager_frame": eager, "graphed_frame": replayed,
+            "per_generator_call": eager // calls[0]}
 
 
 def upscale_turns(g1, g2, lr, frames, windows):
@@ -3058,6 +3267,7 @@ def main():
 
     warp_err, times = phase_warp(dev, wk)
     single_launches, single_err = phase_single_path(dev, wk)
+    conv_rows = phase_conv(dev)
     bundled_lr, bundled_quality = phase_bundled(dev)
     demo_res = phase_demo(dev)
     bench = phase_bench(dev)
@@ -3124,6 +3334,28 @@ def main():
         launches_nccl_rank_turns=parallel["e"]["warp_bwd_launches"],
         launches_two_ranks_per_rank=parallel["b"][
             "warp_bwd_launches_per_rank"])
+    # the conv kernels: one entry per epilogue, its 4x G1 layer at the
+    # top level (the largest of the first pass's), every layer beside it
+    counts = bench["conv_launches"]
+    for name, layer in (("conv_relu", "4x g1 s1 conv1"),
+                        ("conv_residual", "4x g1 s1 conv2+proj"),
+                        ("conv_head", "4x g1 head+skip")):
+        kind = name.split("_")[1]
+        rows = [r for r in conv_rows if r["kind"] == kind]
+        (top,) = [r for r in rows if r["layer"] == layer]
+        entry = {"name": name, "route": "cuda",
+                 "source": "mpgan_torch/csrc/conv.cu",
+                 "replaces": "none (XLA's convolutions in "
+                             "mpgan_tpu/models/generator.py)",
+                 "launch": "ctypes",
+                 "launches": counts["eager_frame"],
+                 "launches_graphed_frame": counts["graphed_frame"],
+                 "path": "4 main path (all three epilogues, 10 a 4x "
+                         "generator call)"}
+        entry.update(top)
+        entry["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        entry["layers"] = rows
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels, "main_path": bench,
                       "serve": served,
                       "bundled": bundled_quality, "demo": demo_res,

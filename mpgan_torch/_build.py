@@ -47,6 +47,11 @@ OPS_LIBS = {"warp_ops": "warp"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
+    "conv": {
+        "mpgan_conv": (_I, [_I, _I, _I, _I, _P, _L, _L, _L, _I, _I, _I, _P,
+                            _P, _P, _L, _L, _L, _P, _P, _I, _I, _P, _I, _I,
+                            _I, _P]),
+    },
     "warp": {
         "mpgan_warp2d": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
                               _P]),

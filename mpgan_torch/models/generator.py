@@ -11,9 +11,19 @@ linearly upsampled input density (channel 0) at the product factor.
 
 Numerics as in flax's ``nn.Conv(dtype=...)``: parameters are float32 and
 are cast to ``dtype`` for the computation, which runs in ``dtype``; the
-output is cast to ``out_dtype`` (float32 when None). Public layout is NHWC;
-the stack runs in NCHW. A fresh model is initialised as flax does it
+output is cast to ``out_dtype`` (float32 when None). Public layout is NHWC.
+A fresh model is initialised as flax does it
 (:mod:`mpgan_torch.models.init`), from an explicit ``torch.Generator``.
+
+Two forwards compute the same function (:meth:`Generator.forward` picks,
+by the rule written there): cuDNN's convolutions over NCHW views with
+ATen's bias, ReLU and residual adds, each result rounded to ``dtype``
+(training, float32, the CPU); and :meth:`Generator.forward_nhwc`, the
+hand-written NHWC kernels of :mod:`mpgan_torch.ops.conv_kernel` with the
+bias, ReLU, residual sum and global skip in their epilogues, rounded once
+per convolution (bf16 inference on a card). ``nhwc_forwards`` and
+``cudnn_forwards`` count the forwards each path ran (a captured program
+counts once, at its capture).
 """
 
 from __future__ import annotations
@@ -27,7 +37,12 @@ from torch.utils.checkpoint import checkpoint
 
 from mpgan_torch.models import init
 from mpgan_torch.models.growing import fade_blend
-from mpgan_torch.ops.upsample import upsample_nchw
+from mpgan_torch.ops import conv_kernel
+from mpgan_torch.ops.upsample import upsample_any, upsample_nchw
+
+# forwards run by each path since the last reset (Generator.forward)
+nhwc_forwards = 0
+cudnn_forwards = 0
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -94,20 +109,66 @@ class Generator(nn.Module):
                 width = filters
             self.add_module(f"head_{k}", init.conv2d(
                 width, out_channels, 3, generator, padding=1))
+        self.nhwc_widths = self._kernel_widths()
+
+    def _kernel_widths(self) -> bool:
+        """Whether every convolution has an NHWC kernel: the stem and each
+        ``conv1`` in :data:`~mpgan_torch.ops.conv_kernel.RELU`, each
+        ``conv2`` with its skip in ``RESIDUAL``, each head in ``HEAD``
+        with one output channel."""
+        if (self.stem.in_channels,
+                self.stem.out_channels) not in conv_kernel.RELU:
+            return False
+        for k in range(len(self.factors)):
+            for i in range(self.n_res_blocks):
+                block = getattr(self, f"block_{k}_{i}")
+                cin, c = block.conv1.in_channels, block.conv1.out_channels
+                if (cin, c) not in conv_kernel.RELU or (
+                        c, cin) not in conv_kernel.RESIDUAL:
+                    return False
+            head = getattr(self, f"head_{k}")
+            if head.out_channels != 1 or (
+                    head.in_channels not in conv_kernel.HEAD):
+                return False
+        return True
+
+    def _product(self, stage: int) -> tuple[int, int]:
+        fh = fw = 1
+        for a, b in self.factors[:stage]:
+            fh *= a
+            fw *= b
+        return fh, fw
+
+    def takes_nhwc(self, x: torch.Tensor, fade: bool = False) -> bool:
+        """The path rule, from what the call shows: bf16 inference on a
+        card with widths the kernels take runs the NHWC kernels, whose
+        epilogues hold the bias, ReLU and residual sum (no layout copies,
+        one rounding per conv). Everything else keeps cuDNN over NCHW
+        views: training under grad or no_grad (its deterministic cuDNN
+        kernels and the rounding its limits were set on), a fade-in (the
+        trainer's alone), float32, the CPU and widths without a kernel
+        (a 7-channel stem)."""
+        return bool(x.is_cuda and self.dtype == torch.bfloat16
+                    and torch.is_inference_mode_enabled() and not fade
+                    and self.nhwc_widths)
 
     def forward(self, x: torch.Tensor, stage: int | None = None,
                 alpha: float | torch.Tensor = 1.0,
                 fade: bool = False) -> torch.Tensor:
         """``alpha``: the fade weight, a float or a 0-d float64 tensor
         (:func:`mpgan_torch.models.growing.fade_blend`)."""
+        global nhwc_forwards, cudnn_forwards
         n_stages = len(self.factors)
         if stage is None:
             stage = n_stages
         if not 1 <= stage <= n_stages:
             raise ValueError(f"stage {stage} not in [1, {n_stages}]")
-        # NHWC → NCHW view, no copy. Forcing channels_last storage here was
-        # measured slower on an H100 (PERF.md, Findings): cuDNN then picks
-        # slower conv kernels at these 8-32 channel widths
+        if self.takes_nhwc(x, fade):
+            nhwc_forwards += 1
+            return self.forward_nhwc(x, stage)
+        cudnn_forwards += 1
+        # NHWC → NCHW view, no copy; channels_last storage measured slower
+        # through cuDNN on an H100 (PERF.md, Findings)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         dens_in = x[:, 0:1]
         h = F.relu(_conv(self.stem, x))
@@ -133,12 +194,29 @@ class Generator(nn.Module):
                 heads[stage - 2], *self.factors[stage - 1]))
 
         if self.global_skip:
-            fh = fw = 1
-            for a, b in self.factors[:stage]:
-                fh *= a
-                fw *= b
-            out = out + upsample_nchw(dens_in, fh, fw)
+            out = out + upsample_nchw(dens_in, *self._product(stage))
         return out.to(self.out_dtype or torch.float32).permute(0, 2, 3, 1)
+
+    def forward_nhwc(self, x: torch.Tensor, stage: int) -> torch.Tensor:
+        """The forward over NHWC activations through
+        :mod:`mpgan_torch.ops.conv_kernel` (kernels for CUDA tensors, their
+        plain versions for CPU ones): the stem, per stage the upsample
+        (:func:`~mpgan_torch.ops.upsample.upsample_any`) and the ResBlocks,
+        two launches each, then only the head whose output is used, with
+        the global skip in its epilogue. ``x`` is read at its strides."""
+        x = x.to(self.dtype)
+        dens = x[..., 0:1] if self.global_skip else None
+        h = conv_kernel.conv_relu(x, self.stem)
+        for k in range(stage):
+            h = upsample_any(h, *self.factors[k])
+            for i in range(self.n_res_blocks):
+                block = getattr(self, f"block_{k}_{i}")
+                h = conv_kernel.conv_residual(
+                    conv_kernel.conv_relu(h, block.conv1), block.conv2, h,
+                    block.proj)
+        return conv_kernel.conv_head(
+            h, getattr(self, f"head_{stage - 1}"), dens,
+            self._product(stage), self.out_dtype or torch.float32)
 
 
 def make_pass1(stages: int, base_filters: int = 32, n_res_blocks: int = 2,

@@ -27,7 +27,8 @@ it; every later use replays. Per program it holds:
 
 A replay reads nothing from the host and waits on nothing: per step the
 host fills the fade weight, reseeds the generator and launches the graph.
-The warp kernels' Python counters (:mod:`mpgan_torch.ops.warp_kernel`)
+The warp and conv kernels' Python counters
+(:mod:`mpgan_torch.ops.warp_kernel`, :mod:`mpgan_torch.ops.conv_kernel`)
 run only where a wrapper is called; the launches that a capture records
 do not run then, so the counters are put back after a capture, and each
 replay adds the launches its graph holds. A failed capture or replay
@@ -67,7 +68,7 @@ import gc
 import torch
 
 from mpgan_torch import tracing
-from mpgan_torch.ops import warp_kernel
+from mpgan_torch.ops import conv_kernel, warp_kernel
 
 
 class Graph:
@@ -79,7 +80,9 @@ class Graph:
     a function that draws nothing) registered; :meth:`replay` runs it and
     returns the outputs the capture returned, which every replay
     overwrites; :meth:`reset` releases the graph and its memory pool.
-    ``launches`` is (forward, backward) warp kernel launches in the graph;
+    ``launches`` is (forward, backward) warp kernel launches in the graph,
+    ``conv_launches`` its generator convolution kernels
+    (:mod:`mpgan_torch.ops.conv_kernel`);
     ``spans`` (a :class:`mpgan_torch.tracing.Captured`) the events that
     the spans inside ``fn`` given a card recorded into it, which each
     replay records again and :func:`mpgan_torch.tracing.spans` reads for
@@ -116,6 +119,7 @@ class Graph:
                     "which the graphed train step draws its batches from")
             graph.register_generator_state(generator)
         n0 = (warp_kernel.launches, warp_kernel.bwd_launches)
+        c0 = conv_kernel.launches
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -129,8 +133,10 @@ class Graph:
                 gc.enable()
         self.launches = (warp_kernel.launches - n0[0],
                          warp_kernel.bwd_launches - n0[1])
+        self.conv_launches = conv_kernel.launches - c0
         # capture recorded these launches; they run at each replay
         warp_kernel.launches, warp_kernel.bwd_launches = n0
+        conv_kernel.launches = c0
         self.graph = graph
 
     def replay(self):
@@ -138,6 +144,7 @@ class Graph:
             self.graph.replay()
         warp_kernel.launches += self.launches[0]
         warp_kernel.bwd_launches += self.launches[1]
+        conv_kernel.launches += self.conv_launches
         return self.out
 
     def reset(self) -> None:
