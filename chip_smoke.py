@@ -269,7 +269,7 @@ exit, and no result line:
             stage replaying its CUDA graph (one capture per stage), under
             cuDNN's deterministic mode, bf16 and f32: every frame, read
             after all are out, equal to an eager pipeline's (built with
-            assemble.graphable answering False) bit for bit and to
+            graphed.graphable answering False) bit for bit and to
             upscale_volume's (bf16
             within one unit, 2^-7; f32 within 1e-4); the graphs' pool
             bytes; bf16 ms per frame graphed, eager and sequential, in
@@ -1255,7 +1255,7 @@ def multi_card_frame_bits():
                 for i in range(3) for n in MULTI_CARD_SIZES]
             got = [graphed(f) for f in frames]
             programs = [q for p in graphed.programs.values()
-                        for q in p.programs.values()]
+                        for q in p.values()]
             assert programs and all(q.captured for q in programs)
             assert {q.device for q in programs} == set(cards)
             with torch.inference_mode():
@@ -1997,16 +1997,16 @@ def counted_captures():
 
 @contextlib.contextmanager
 def eager_only():
-    """Within the block nothing is graphable (mpgan_torch.infer.assemble
+    """Within the block nothing is graphable (mpgan_torch.train.graphed
     .graphable answers False): what is built there runs eagerly."""
-    from mpgan_torch.infer import assemble
+    from mpgan_torch.train import graphed
 
-    graphable = assemble.graphable
-    assemble.graphable = lambda device, devices=None: False
+    graphable = graphed.graphable
+    graphed.graphable = lambda device, devices=None: False
     try:
         yield
     finally:
-        assemble.graphable = graphable
+        graphed.graphable = graphable
 
 
 def phase_streamed(dev):
@@ -3192,9 +3192,9 @@ def multi_card_pipeline(frames):
     cuDNN's deterministic mode: every frame equal to an eager pipeline's
     over the same cards bit for bit → per dtype the split and frames
     compared; None on one card."""
-    from mpgan_torch.infer import assemble
     from mpgan_torch.infer.pipeline import InferencePipeline
     from mpgan_torch.parallel import mesh as pmesh
+    from mpgan_torch.train import graphed
 
     if torch.cuda.device_count() < 2:
         print("   13d multi-card: a stage over distinct cards needs several "
@@ -3212,15 +3212,15 @@ def multi_card_pipeline(frames):
             pp = InferencePipeline(g1, g2, 4, devices=cards)
             with eager_only():
                 eager = InferencePipeline(g1, g2, 4, devices=cards)
-            spans = [st.split for st in pp.stages]
+            spans = [st.programs.split for st in pp.stages]
             assert any(spans) and all(st.graphed for st in pp.stages)
             got = list(pp.stream(frames))
             want = list(eager.stream(frames))
             for d in cards:
                 torch.cuda.synchronize(d)
             assert all(torch.equal(a, b) for a, b in zip(got, want)), dtype
-            assert all(isinstance(p, assemble.CardPrograms)
-                       for st in pp.stages if st.split
+            assert all(isinstance(p, graphed.CardPrograms)
+                       for st in pp.stages if st.programs.split
                        for p in st.programs.values())
             res[dtype] = {"split": list(pp.split),
                           "stages_over_cards": spans,

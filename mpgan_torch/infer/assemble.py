@@ -24,13 +24,13 @@ slice order. Per-slice 2D convolutions need no halo exchange.
 
 On one card a whole upscale is one device program, as JAX jits it
 (:func:`make_graphed_upscaler`, the counterpart of ``make_jitted_upscaler``):
-a CUDA graph per input shape, replayed per call (:class:`GraphedProgram`),
-and each sweep replays one program over all its volumes; so does each
-stage of :class:`mpgan_torch.infer.pipeline.InferencePipeline` on one card.
-Over distinct cards a capture cannot hold the call, so each card's share of
-each pass is its own program, captured on that card (:class:`CardPrograms`),
-and the gather, transposes and velocity resizes between the passes run
-eagerly on the first card.
+a CUDA graph per input shape, replayed per call, and each sweep replays one
+program over all its volumes; so does each stage of
+:class:`mpgan_torch.infer.pipeline.InferencePipeline` on one card. Over
+distinct cards a capture cannot hold the call, so each card's share of
+each pass is its own program, captured on that card, and the gather,
+transposes and velocity resizes between the passes run eagerly on the
+first card (the programs: :mod:`mpgan_torch.train.graphed`).
 The streamed assembly's chunks run eagerly (JAX jits its ``chunk_fn``):
 the host's fetch of each chunk bounds that path, and a capture made anew
 per call costs more than its replays save.
@@ -57,9 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import itertools
 import weakref
-from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -69,12 +67,6 @@ from mpgan_torch import tracing
 from mpgan_torch.ops.upsample import resize_volume
 from mpgan_torch.parallel.mesh import canonical
 from mpgan_torch.train import graphed
-
-# captured programs a graphed upscaler keeps, one per input shape and dtype
-# (make_graphed_upscaler): each holds a memory pool somewhat above the
-# eager call's peak (2.33 GB against 1.72 GB at 64³→256³ bf16 on an H100,
-# chip_smoke.py phase 4)
-MAX_PROGRAMS = 2
 
 # generator → {device: (parameter versions, replica on that device)}
 _REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -97,20 +89,16 @@ def replica(gen: torch.nn.Module, device) -> torch.nn.Module:
     return per[device][1]
 
 
-def spans_cards(devices) -> bool:
-    """Whether a device list names more than one device."""
-    return devices is not None and len({canonical(d) for d in devices}) > 1
-
-
 def _per_device(gen, devices, programs=None, **kw):
     """The per-slice call of ``gen``. With a device list, the call of one
     device's share ``(x, device)``: on the replica of ``gen`` on that
-    device, or, given ``programs`` (a :class:`CardPrograms`), as that
+    device, or, given ``programs`` (a ``graphed.CardPrograms``), as that
     card's captured program."""
     if devices is None or len(devices) <= 1:
         return lambda x: gen(x, **kw)
     if programs is not None:
-        return lambda x, dev: programs.run(gen, kw, x, dev)
+        return lambda x, dev: programs.share(gen, kw, x, dev,
+                                             replica(gen, dev))
     return lambda x, dev: replica(gen, dev)(x, **kw)
 
 
@@ -153,7 +141,7 @@ def _between(devices):
 def _pass_span(pass_no: int, vol: torch.Tensor, devices):
     """The span of one pass over ``vol``, timed on its card unless the
     pass is split over several."""
-    device = None if spans_cards(devices) else vol.device
+    device = None if graphed.spans_cards(devices) else vol.device
     return tracing.span("upscale.pass", device, pass_no=pass_no)
 
 
@@ -193,8 +181,8 @@ def pass1_volume(gen1, lr_vol: torch.Tensor, stage: int | None = None,
                  chunk: int = 0, devices=None,
                  programs=None) -> torch.Tensor:
     """(Z, Y, X, C) → intermediate (Z, Y·s, X·s, 1) via xy slices.
-    ``programs`` (a :class:`CardPrograms`) replays each card's share of a
-    split over distinct cards."""
+    ``programs`` (a ``graphed.CardPrograms``) replays each card's share of
+    a split over distinct cards."""
     with _pass_span(1, lr_vol, devices):
         return apply_sliced(_per_device(gen1, devices, programs,
                                         stage=stage), lr_vol, chunk, devices)
@@ -250,7 +238,7 @@ def upscale_volume(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
     returns the pass-1 output. gen2=None → pass 1 with a nearest z-repeat
     standing in for pass 2; a pass-3 refiner still runs after it.
     ``devices`` splits every pass's slices over a device list;
-    ``programs`` (a :class:`CardPrograms`) replays each card's shares.
+    ``programs`` (a ``graphed.CardPrograms``) replays each card's shares.
     """
     interm = pass1_volume(gen1, lr_vol, stage=stage, chunk=chunk,
                           devices=devices, programs=programs)
@@ -356,153 +344,26 @@ def upscale_volume_streamed(gen1, gen2, lr_vol: torch.Tensor, up_res: int,
     return final
 
 
-def graphable(device, devices=None) -> bool:
-    """Whether calls on ``device`` (split over ``devices``) can replay
-    captured programs: CUDA graphs exist on every device named. On one
-    card (a list that repeats it included) one capture holds the whole
-    call; over distinct cards each card's shares are programs of their
-    own (:class:`CardPrograms`), since a capture lives on one device."""
-    return all(graphed.Graph.available(d) for d in [device, *(devices or ())])
-
-
-class GraphedProgram:
-    """``fn(*xs)`` for inputs of one shape and dtype each as one captured
-    CUDA graph (:class:`mpgan_torch.train.graphed.Graph`), by the rule of
-    the train step's :class:`~mpgan_torch.train.graphed.Program`: the
-    first use runs ``fn`` eagerly (the warm-up: cuDNN's algorithm choice,
-    the upsample weights, replicas), the second copies each input into the
-    program's static inputs (``xs``, on ``device``, each with its input's
-    strides: cuDNN picks a convolution's kernels by its input's layout, and
-    a card's share of a split is a strided view on the first card) and
-    captures, every later use copies in and replays. From the second use
-    on, ``program(*xs)`` returns the graph's static output, which the next
-    replay overwrites: a caller that keeps it copies it first
-    (:func:`make_graphed_upscaler`). An input may be None (a pass without
-    velocity); the captured function then gets None there too.
-
-    An input may lie on the host. A replay raises ``RuntimeError`` when a
-    parameter or buffer of ``modules`` no longer lies where it lay at the
-    capture (a module moved or its tensors replaced: the graph would read
-    the old storage); values changed in place are read by the replay.
-    ``generator`` (a ``torch.Generator`` of ``device``) is registered with
-    the graph: a replay draws from its state at the call, as an eager call
-    does (the caller reseeds it)."""
-
-    def __init__(self, fn, modules, device, generator=None):
-        self.fn = fn
-        self.modules = [m for m in modules if m is not None]
-        self.device = canonical(device)
-        self.generator = generator
-        self.uses = 0
-        self.graph: graphed.Graph | None = None
-        self.xs: list[torch.Tensor | None] = []
-        self.storage: list[int] = []
-
-    def _storage(self) -> list[int]:
-        return [t.data_ptr() for m in self.modules
-                for t in itertools.chain(m.parameters(), m.buffers())]
-
-    @property
-    def captured(self) -> bool:
-        return self.graph is not None
-
-    def __call__(self, *xs: torch.Tensor | None) -> torch.Tensor:
-        self.uses += 1
-        if self.uses == 1:
-            return self.fn(*(None if x is None else x.to(self.device)
-                             for x in xs))
-        if self.graph is None:
-            self.xs = [None if x is None else torch.empty_strided(
-                x.shape, x.stride(), dtype=x.dtype, device=self.device)
-                for x in xs]
-            self._fill(xs)
-            self.storage = self._storage()
-            self.graph = graphed.Graph(lambda: self.fn(*self.xs),
-                                       self.device, self.generator)
-        elif self._storage() != self.storage:
-            raise RuntimeError(
-                "a generator's parameters were moved or replaced since its "
-                "CUDA graph was captured; make the upscaler or pipeline anew")
-        else:
-            self._fill(xs)
-        return self.graph.replay()
-
-    def _fill(self, xs) -> None:
-        for static, x in zip(self.xs, xs, strict=True):
-            if static is not None:
-                static.copy_(x)
-
-    def release(self) -> None:
-        """Release the graph, its memory pool and the static inputs."""
-        if self.graph is not None:
-            self.graph.reset()
-        self.graph = None
-        self.xs = []
-
-
-class CardPrograms:
-    """The shares of calls split over distinct cards as captured programs:
-    the counterpart of ``make_jitted_upscaler`` over a mesh, whose one
-    program spans every device. A capture lives on one card, so each
-    card's share of a pass is a :class:`GraphedProgram` of its own, one per
-    (generator, its keywords, card, share shape, dtype), run on the
-    generator's replica on that card (:func:`replica`; a new replica gets a
-    new program) and captured on that card at its second use. Each
-    replay's output is copied on the card's stream before the first card
-    gathers it (:func:`run_copied`): a device list that repeats a card
-    replays one program for several of its shares. ``modules`` are the
-    caller's generators (a pipeline stage makes a new ``CardPrograms`` for
-    a new replica); :meth:`release` frees every graph."""
-
-    def __init__(self, modules=()):
-        self.modules = list(modules)
-        self.programs: dict[tuple, GraphedProgram] = {}
-
-    def run(self, gen, kw: dict, x: torch.Tensor, device) -> torch.Tensor:
-        """``gen``'s call with keywords ``kw`` on the share ``x``, which
-        lies on ``device``, as that card's program."""
-        device = canonical(device)
-        rep = replica(gen, device)
-        key = (gen, tuple(sorted(kw.items())), device, tuple(x.shape),
-               x.dtype)
-        program = self.programs.get(key)
-        if program is None or program.modules != [rep]:
-            if program is not None:
-                program.release()
-            program = self.programs[key] = GraphedProgram(
-                lambda y: rep(y, **kw), (rep,), device)
-        return run_copied(program, x)
-
-    def release(self) -> None:
-        for program in self.programs.values():
-            program.release()
-        self.programs.clear()
-
-
 class GraphedUpscaler:
-    """``lr (Z, Y, X, C) → HR (Z·s, Y·s, X·s, 1)`` over a pass chain, one
-    :class:`GraphedProgram` per ``(input shape, dtype)``, or over distinct
-    cards one :class:`CardPrograms` per ``(input shape, dtype)``
+    """``lr (Z, Y, X, C) → HR (Z·s, Y·s, X·s, 1)`` over a pass chain, its
+    programs by ``(input shape, dtype)`` in a ``graphed.ProgramCache``
     (:func:`make_graphed_upscaler`)."""
 
     def __init__(self, gen1, gen2, up_res: int, stage: int | None = None,
                  chunk: int = 0, gen3=None, devices=None):
         self.device = canonical(next(gen1.parameters()).device)
-        if not graphable(self.device, devices):
+        if not graphed.graphable(self.device, devices):
             raise ValueError(
                 "a graphed upscaler captures each program on one CUDA card; "
                 f"got {self.device} split over {devices}")
-        self.modules = (gen1, gen2, gen3)
-        self.split = spans_cards(devices)
+        self.modules = tuple(g for g in (gen1, gen2, gen3) if g is not None)
 
         def fn(lr_vol, programs=None):
             return upscale_volume(gen1, gen2, lr_vol, up_res, stage=stage,
                                   chunk=chunk, gen3=gen3, devices=devices,
                                   programs=programs)
         self.fn = fn
-        # least recently used first
-        self.programs: OrderedDict[tuple, GraphedProgram | CardPrograms] = \
-            OrderedDict()
+        self.programs = graphed.ProgramCache(self.device, devices)
 
     def __call__(self, lr_vol) -> torch.Tensor:
         with tracing.span("upscale.frame", self.device):
@@ -510,42 +371,11 @@ class GraphedUpscaler:
 
     def _call(self, lr_vol) -> torch.Tensor:
         lr_vol = torch.as_tensor(lr_vol)
-        key = (tuple(lr_vol.shape), lr_vol.dtype)
-        if self.split:
-            programs = cached_program(self.programs, key, CardPrograms)
-            with torch.inference_mode():
-                # the gather makes a fresh tensor per call
-                return self.fn(lr_vol.to(self.device), programs)
-        program = cached_program(
-            self.programs, key,
-            lambda: GraphedProgram(self.fn, self.modules, self.device))
         with torch.inference_mode():
-            # a server fetches a result outside its device lock, while the
-            # next request may replay
-            return run_copied(program, lr_vol)
-
-
-def cached_program(programs: OrderedDict, key, make):
-    """The program of ``key`` in ``programs`` (least recently used first;
-    a :class:`GraphedProgram` or a :class:`CardPrograms`), made by
-    ``make()`` when absent and made the most recent; beyond
-    ``MAX_PROGRAMS`` the least recently used one's graphs and memory pools
-    are released and it is dropped."""
-    program = programs.pop(key, None)
-    if program is None:
-        program = make()
-    programs[key] = program
-    if len(programs) > MAX_PROGRAMS:
-        programs.popitem(last=False)[1].release()
-    return program
-
-
-def run_copied(program: GraphedProgram, *xs) -> torch.Tensor:
-    """``program(*xs)``, a replay's output copied on the device: the
-    program's next replay overwrites its own output, so every caller gets
-    a fresh tensor, as JAX hands out a fresh buffer per call."""
-    out = program(*xs)
-    return out.clone() if program.captured else out
+            # a fresh tensor per call: a server fetches a result outside
+            # its device lock, while the next request may replay
+            return self.programs.run((tuple(lr_vol.shape), lr_vol.dtype),
+                                     self.fn, self.modules, lr_vol)
 
 
 def make_graphed_upscaler(gen1, gen2, up_res: int, stage: int | None = None,
@@ -559,7 +389,7 @@ def make_graphed_upscaler(gen1, gen2, up_res: int, stage: int | None = None,
     → ``upscale(lr)``: ``lr`` (Z, Y, X, C), a tensor on the host or the
     generators' card (or an array), → a fresh (Z·s, Y·s, X·s, 1) tensor on
     the card, under inference mode. Per ``(shape, dtype)`` a
-    :class:`GraphedProgram`: eager at its first use, captured at its
+    ``graphed.GraphedProgram``: eager at its first use, captured at its
     second, replayed after; each replay's output is copied out on the
     device (one 32 MB copy at 256³ bf16), so no returned tensor is ever
     overwritten by a later call. The cache keeps the ``MAX_PROGRAMS`` (2)
@@ -568,10 +398,10 @@ def make_graphed_upscaler(gen1, gen2, up_res: int, stage: int | None = None,
     an H100), and that shape starts again from an eager use. ``devices``
     may repeat the generators' card (one capture holds both shares). Over
     distinct cards each card's share of each pass is its own program
-    (:class:`CardPrograms`, the shapes of ``MAX_PROGRAMS`` inputs kept per
-    card), and the gather and the steps between the passes run eagerly on
-    the first card; each call returns a fresh tensor there too. A device
-    without CUDA graphs (the CPU) raises ``ValueError``."""
+    (``graphed.CardPrograms``, the shapes of ``MAX_PROGRAMS`` inputs kept
+    per card), and the gather and the steps between the passes run
+    eagerly on the first card; each call returns a fresh tensor there
+    too. A device without CUDA graphs (the CPU) raises ``ValueError``."""
     return GraphedUpscaler(gen1, gen2, up_res, stage=stage, chunk=chunk,
                            gen3=gen3, devices=devices)
 
@@ -580,18 +410,15 @@ def _sweep(fn, lr_vols: torch.Tensor, modules, devices) -> torch.Tensor:
     """``fn(volume, programs=None)`` over each volume of ``lr_vols`` under
     inference mode, each result cast to float32 into one output tensor
     allocated once (as the JAX package's single-allocation ``lax.map``: a
-    list and a stack would hold the sweep twice). Where it can
-    (:func:`graphable`), ``fn`` replays, since the volumes share one shape
-    (JAX's one ``jit(lax.map)``): on one card as one
-    :class:`GraphedProgram`, over distinct cards each card's shares as
-    :class:`CardPrograms`; released at the end."""
-    program, one = None, fn
-    if graphable(lr_vols.device, devices):
-        if spans_cards(devices):
-            program = CardPrograms()
-            one = lambda v: fn(v, program)  # noqa: E731
-        else:
-            program = one = GraphedProgram(fn, modules, lr_vols.device)
+    list and a stack would hold the sweep twice). Where it can, ``fn``
+    replays as one key's programs, since the volumes share one shape
+    (JAX's one ``jit(lax.map)``), released at the end; each result goes
+    into the output at once, so a replay's is not copied out first."""
+    programs, one = None, fn
+    if graphed.graphable(lr_vols.device, devices):
+        programs = graphed.ProgramCache(lr_vols.device, devices)
+        one = lambda v: programs.run(None, fn, modules, v,  # noqa: E731
+                                     copied=False)
     n = lr_vols.shape[0]
     try:
         with torch.inference_mode():
@@ -605,8 +432,8 @@ def _sweep(fn, lr_vols: torch.Tensor, modules, devices) -> torch.Tensor:
             for i in range(1, n):
                 out[i] = one(lr_vols[i])
     finally:
-        if program is not None:
-            program.release()
+        if programs is not None:
+            programs.release()
     return out
 
 

@@ -18,19 +18,17 @@ hand its memory out before the reader is done. Stages may share a device
 the stages run one after another.
 
 A stage replays CUDA graphs on cards, the counterpart of JAX's jitted
-``fn1``, ``fn2`` and ``fn3`` (:func:`mpgan_torch.infer.assemble.graphable`).
-Where its group is one card (a list that repeats it included), whether or
-not the other stages share that card, it runs its pass as a
-:class:`~mpgan_torch.infer.assemble.GraphedProgram` per input shape and
-dtype (eager at a shape's first frame, captured on its own card at its
-second, replayed after; ``MAX_PROGRAMS`` kept), on its own stream. Each
+``fn1``, ``fn2`` and ``fn3``, through its
+:class:`~mpgan_torch.train.graphed.ProgramCache` (per input shapes and
+dtypes, ``MAX_PROGRAMS`` kept). Where its group is one card (a list that
+repeats it included), whether or not the other stages share that card, it
+runs its pass as one program (eager at a shape's first frame, captured on
+its own card at its second, replayed after), on its own stream. Each
 replay's output is copied on that stream before the handoff, so that the
 stage's next replay cannot overwrite a frame that the next stage still
 reads. A stage spread over several distinct cards runs its pass eagerly
 on its first card with each card's share of the slices replayed as that
-card's program (:class:`~mpgan_torch.infer.assemble.CardPrograms`, one
-per input shape and dtype, ``MAX_PROGRAMS`` kept), as a capture lives on
-one device.
+card's program, as a capture lives on one device.
 
 Pass 2 runs its convolutions on the full-resolution xy grid, about up_res×
 pass 1's work per frame (pass 3 likewise), so :func:`default_split`
@@ -40,7 +38,8 @@ assigns devices in proportion to [1, up, up].
 from __future__ import annotations
 
 import contextlib
-from collections import OrderedDict, deque
+import functools
+from collections import deque
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
@@ -48,6 +47,7 @@ import torch
 
 from mpgan_torch.infer import assemble
 from mpgan_torch.parallel import mesh as pmesh
+from mpgan_torch.train import graphed
 
 
 def default_split(n_devices: int, n_stages: int, up_res: int
@@ -83,11 +83,8 @@ class _Stage:
         self.fn = fn
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
-        self.graphed = assemble.graphable(self.device, devices)
-        self.split = assemble.spans_cards(devices)
-        # (input shapes and dtypes) → program (CardPrograms where the group
-        # spans cards), least recently used first
-        self.programs: OrderedDict = OrderedDict()
+        self.graphed = graphed.graphable(self.device, devices)
+        self.programs = graphed.ProgramCache(self.device, devices)
 
     def run(self, gen, *xs):
         """The stage's pass over ``xs`` with ``gen`` (its replica on this
@@ -99,23 +96,11 @@ class _Stage:
             return self.fn(gen, *xs)
         key = tuple(None if x is None else (tuple(x.shape), x.dtype)
                     for x in xs)
-        program = self.programs.get(key)
-        if program is not None and program.modules != [gen]:
-            program.release()
-            del self.programs[key]
-        if self.split:
-            programs = assemble.cached_program(
-                self.programs, key, lambda: assemble.CardPrograms((gen,)))
-            return self.fn(gen, *xs, programs=programs)
-        program = assemble.cached_program(
-            self.programs, key, lambda: assemble.GraphedProgram(
-                lambda *ys: self.fn(gen, *ys), (gen,), self.device))
-        return assemble.run_copied(program, *xs)
+        return self.programs.run(key, functools.partial(self.fn, gen),
+                                 (gen,), *xs)
 
     def release(self) -> None:
-        for program in self.programs.values():
-            program.release()
-        self.programs.clear()
+        self.programs.release()
 
     def context(self):
         return (torch.cuda.stream(self.stream) if self.stream is not None

@@ -33,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mpgan_torch import _build
+from mpgan_torch import _build, tracing
 from mpgan_torch.ops.upsample import upsample_nchw
 
 # (input width, output width) of conv_relu's kernels
@@ -48,6 +48,7 @@ HEAD = frozenset((8, 16, 32))
 # adds them here; its capture, which records them without launching,
 # leaves the count as it was (mpgan_torch.train.graphed).
 launches = 0
+tracing.count_launches(__name__, conv="launches")
 
 _lib = None
 

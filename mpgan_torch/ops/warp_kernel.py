@@ -65,6 +65,7 @@ DEFAULT_MAX_DISP = 8
 # resets them before driving each path.
 launches = 0
 bwd_launches = 0
+tracing.count_launches(__name__, warp="launches", warp_bwd="bwd_launches")
 
 _lib = None
 _ops = None  # the forward operators' builtins, once loaded

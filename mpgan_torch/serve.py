@@ -307,15 +307,16 @@ def make_upscaler(chain, device=None, up_res: int = 4, chunk: int = 0):
     from mpgan_torch.device import resolve_device
     from mpgan_torch.infer import assemble
     from mpgan_torch.parallel import mesh as pmesh
+    from mpgan_torch.train import graphed
 
     dev = resolve_device(device)
     gen1, gen2, gen3 = chain
     devices = (pmesh.make_mesh() if dev.type == "cuda"
                and torch.cuda.device_count() > 1 else None)
-    if assemble.graphable(dev, devices):
-        graphed = assemble.make_graphed_upscaler(
+    if graphed.graphable(dev, devices):
+        up = assemble.make_graphed_upscaler(
             gen1, gen2, up_res, chunk=chunk, gen3=gen3, devices=devices)
-        return lambda lr: graphed(np.asarray(lr, dtype=np.float32))
+        return lambda lr: up(np.asarray(lr, dtype=np.float32))
 
     def upscale(lr: np.ndarray) -> torch.Tensor:
         lr_t = torch.tensor(np.asarray(lr, dtype=np.float32), device=dev)

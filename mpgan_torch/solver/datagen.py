@@ -13,7 +13,7 @@ Per simulation two device programs run, as JAX jits them
 (``mpgan_tpu/solver/datagen.py:158-172``, the 2D ones ``:235-247``):
 ``frame_step`` (the inflow noise and the solver step) and
 ``frame_outputs`` (the downsampled LR fields). On a card each is a CUDA
-graph (:class:`~mpgan_torch.infer.assemble.GraphedProgram`: eager at its
+graph (:class:`~mpgan_torch.train.graphed.GraphedProgram`: eager at its
 first use, captured at its second, replayed after; released at the sim's
 end), elsewhere the same functions run eagerly; both ways write the same
 bytes. The moving obstacle's mask is built inside ``frame_step`` from its
@@ -42,10 +42,10 @@ import numpy as np
 import torch
 
 from mpgan_torch.device import resolve_device
-from mpgan_torch.infer import assemble
 from mpgan_torch.io import uni
 from mpgan_torch.ops.resample import downsample_2d, downsample_3d
 from mpgan_torch.solver import noise, smoke, smoke2d
+from mpgan_torch.train import graphed
 from mpgan_torch.utils.liveness import touch_heartbeat
 
 SCENES = ("plume", "varied", "varied-dual", "moving")
@@ -239,7 +239,7 @@ class Frames:
     → the new state's fields, where ``inputs(state, t)`` are its inputs
     for frame t and its noise is drawn from ``generator``;
     ``outputs_fn(density, velocity)`` → the LR fields. On a card each is a
-    :class:`~mpgan_torch.infer.assemble.GraphedProgram`, ``generator``
+    :class:`~mpgan_torch.train.graphed.GraphedProgram`, ``generator``
     registered with the step's (``graphed``); elsewhere the function
     itself. Each frame reseeds the generator with its seed first, as a
     fresh :func:`~mpgan_torch.solver.noise.frame_generator` is seeded. A
@@ -249,10 +249,10 @@ class Frames:
     def __init__(self, step_fn, inputs, outputs_fn, seed: int, device,
                  generator: torch.Generator):
         self.inputs, self.seed, self.generator = inputs, seed, generator
-        self.graphed = assemble.graphable(device)
+        self.graphed = graphed.graphable(device)
         if self.graphed:
-            step_fn = assemble.GraphedProgram(step_fn, (), device, generator)
-            outputs_fn = assemble.GraphedProgram(outputs_fn, (), device)
+            step_fn = graphed.GraphedProgram(step_fn, (), device, generator)
+            outputs_fn = graphed.GraphedProgram(outputs_fn, (), device)
         self.step_fn, self.outputs_fn = step_fn, outputs_fn
 
     def advance(self, state, t: int):

@@ -5,25 +5,22 @@ package's jitted ``smoke.step`` and ``smoke2d.step``
 
 JAX compiles one program per (state shape, ``params``, inflow given or
 not); :class:`GraphedStep` keeps one
-:class:`~mpgan_torch.infer.assemble.GraphedProgram` per such key, by the
+:class:`~mpgan_torch.train.graphed.GraphedProgram` per such key, by the
 rule of the port's other programs: eager at its first use, captured at its
-second (:class:`mpgan_torch.train.graphed.Graph`, on the state's card),
-replayed after. The step waits on nothing from the host (the CG freeze is
-``torch.where`` on 0-d tensors), so its whole work is one graph; anything
-that did synchronise would make the capture raise, and nothing falls back
-to eager. Datagen's per-frame programs (inflow noise + step, and the
-downsampled outputs) are made the same way in
-:mod:`mpgan_torch.solver.datagen`.
+second (on the state's card), replayed after. The step waits on nothing
+from the host (the CG freeze is ``torch.where`` on 0-d tensors), so its
+whole work is one graph; anything that did synchronise would make the
+capture raise, and nothing falls back to eager. Datagen's per-frame
+programs (inflow noise + step, and the downsampled outputs) are made the
+same way in :mod:`mpgan_torch.solver.datagen`.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
-
 import torch
 
-from mpgan_torch.infer import assemble
 from mpgan_torch.solver import smoke
+from mpgan_torch.train import graphed
 
 
 class GraphedStep:
@@ -44,15 +41,13 @@ class GraphedStep:
 
     def __init__(self, step=smoke.step):
         self.step = step
-        # least recently used first
-        self.programs: OrderedDict[tuple, assemble.GraphedProgram] = \
-            OrderedDict()
+        self.programs = graphed.ProgramCache()
 
     def __call__(self, state, params: smoke.SmokeParams,
                  inflow_density: torch.Tensor | None = None,
                  inflow_mask: torch.Tensor | None = None):
         device = state.density.device
-        if not assemble.graphable(device):
+        if not graphed.graphable(device):
             raise ValueError(f"a graphed solver step runs on a CUDA card; "
                              f"got {device}")
         if inflow_density is None or inflow_mask is None:
@@ -62,16 +57,13 @@ class GraphedStep:
         def run(density, velocity, solid, src, mask):
             new = self.step(cls(density, velocity, solid), params, src, mask)
             return new.density, new.velocity
-        program = assemble.cached_program(
-            self.programs,
+        program = self.programs.program(
             (cls, tuple(state.density.shape), params, inflow_mask is not None),
-            lambda: assemble.GraphedProgram(run, (), device))
+            lambda: graphed.GraphedProgram(run, (), device))
         density, velocity = program(state.density, state.velocity,
                                     state.solid, inflow_density, inflow_mask)
         return cls(density, velocity, state.solid)
 
     def release(self) -> None:
         """Release every program's graph and memory pool."""
-        for program in self.programs.values():
-            program.release()
-        self.programs.clear()
+        self.programs.release()

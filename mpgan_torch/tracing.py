@@ -42,12 +42,19 @@ Finished spans go into a bounded store (the newest ``STORE_LEN``);
 :func:`spans` resolves their events and returns them, :func:`clear`
 empties it. There is no exporter of its own: the profiler's trace is the
 file to read.
+
+Launch counters: a kernel wrapper that counts its launches in a module
+global registers it by name in :data:`COUNTERS`
+(:func:`count_launches`), so that a CUDA graph's capture, which records
+launches without running them, can put every counter back and each of its
+replays add what it recorded (:class:`mpgan_torch.train.graphed.Graph`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import sys
 import threading
 import time
 from collections import deque
@@ -65,6 +72,16 @@ _NULL = contextlib.nullcontext()
 _profiling = torch._C._autograd._profiler_enabled
 # the Captured whose last replay was traced and is not read yet
 _unread: set = set()
+# name → (module, attribute) of each kernel wrapper's launch counter
+COUNTERS: dict = {}
+
+
+def count_launches(module: str, **counters: str) -> None:
+    """Register the launch counters of the module named ``module``:
+    ``name=attribute``, each attribute a module-level int that its
+    wrappers add their launches to."""
+    mod = sys.modules[module]
+    COUNTERS.update((name, (mod, attr)) for name, attr in counters.items())
 
 
 @contextlib.contextmanager

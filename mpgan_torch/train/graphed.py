@@ -1,92 +1,86 @@
-"""The train step as CUDA graphs — the port's counterpart of the JAX
-package's jitted step (``mpgan_tpu/train/loop.py`` ``make_train_step``).
+"""The port's captured programs: CUDA graphs of the train step, the
+upscaler, the pipeline's stages, the solver's step and datagen's frames,
+the counterparts of the JAX package's jitted functions.
 
-JAX compiles one device program per (stage, fade) pair and runs the whole
-step in it: sampling, the D and Dt updates, lazy R1 as a ``lax.cond``,
-the G update and the EMA. Here one :class:`Program` holds one such program
-of a stage runtime, with lazy R1 chosen per program (a graph has no
-branches, and ``lax.cond`` runs one branch anyway), so a runtime has up to
-four: fade or stable, R1 or not (:class:`Programs`).
+One rule makes every program (:class:`GraphedProgram`): its first use runs
+the function eagerly (the warm-up: cuDNN picks its algorithms, constants,
+moments and replicas are made, the kernels are built); its second copies
+the inputs into static ones and captures the function into a graph
+(:class:`Graph`) with its own memory pool, since capture records work
+without running it, and replays it; every later use copies in and
+replays. A replay overwrites the graph's static outputs. A failed capture
+or replay raises; nothing falls back to eager.
 
-A program's first use steps eagerly: it is the warm-up (cuDNN picks its
-algorithms, constants and the optimizer's moments are made, the kernels
-are built), and a real step. Its second use captures
-:meth:`mpgan_torch.train.loop.TrainStep.run` into a graph with its own
-memory pool and replays it, since capture records work without running
-it; every later use replays. Per program it holds:
-
-- the fade weight, a 0-d float64 tensor filled before each replay
-  (:func:`mpgan_torch.models.growing.fade_blend`);
-- the trainer's sampling generator, registered with the graph, so that
-  the seed the trainer sets before each iteration decides what a replay
-  draws, as it decides an eager step's draws;
-- the graph's output tensors, the step's metrics, which the next replay
-  overwrites;
-- the graph and its memory pool, released with the runtime at a growth
-  boundary or a restore.
-
-A replay reads nothing from the host and waits on nothing: per step the
-host fills the fade weight, reseeds the generator and launches the graph.
-The warp and conv kernels' Python counters
-(:mod:`mpgan_torch.ops.warp_kernel`, :mod:`mpgan_torch.ops.conv_kernel`)
-run only where a wrapper is called; the launches that a capture records
-do not run then, so the counters are put back after a capture, and each
-replay adds the launches its graph holds. A failed capture or replay
-raises; nothing falls back to an eager step.
-
-Inside an NCCL process group (a data-parallel rank, JAX's step jitted
-over the mesh with its ``psum`` inside) the graph holds the step's
-collectives too: the gradient all-reduce of each update and the metric
-all-reduce (:func:`mpgan_torch.parallel.mesh.all_reduce_mean`).
+The train step (JAX's ``make_train_step``, one program per (stage, fade)):
+one :class:`Program` per stage runtime, fade or stable, and lazy R1 or not,
+as a graph has no branches (:class:`Programs`). It has no inputs: the fade
+weight is a 0-d float64 tensor filled before each use, and the trainer's
+sampling generator is registered with the graph, so that the seed set
+before each iteration decides what a replay draws, as it decides an eager
+step's. A replay reads nothing from the host and waits on nothing. In an
+NCCL process group the graph holds the step's all-reduces too:
 ``ProcessGroupNCCL`` runs them on its own stream, which joins the capture
-through the events it orders the streams with, so a replay runs them
-where an eager step does. The communicator exists before any capture:
-the state's broadcast at the runtime's start makes it, and every
-program's eager first use all-reduces. A gloo group's collectives run on
-the host, which a graph cannot hold, so there the trainer steps eagerly
-(:class:`mpgan_torch.train.loop.Trainer`). Every rank picks the same
-program at each step, as the choice is a function of the step counter
-and the schedule, which the ranks share.
+through the events it orders the streams with, and the communicator exists
+before any capture (the state's broadcast makes it). A gloo group's
+collectives run on the host, which a graph cannot hold, so there the
+trainer steps eagerly (:class:`mpgan_torch.train.loop.Trainer`). Every rank
+picks the same program at each step, a function of the step counter and
+the schedule.
 
-:class:`Graph` is also the capture primitive of the inference programs
-(:class:`mpgan_torch.infer.assemble.GraphedProgram`), which draw nothing
-and so register no generator, and of the solver's step and datagen frame
-(:mod:`mpgan_torch.solver.graphed`, :mod:`mpgan_torch.solver.datagen`),
-whose inflow noise draws from a registered generator.
+Inference (JAX's ``jit`` per input shape and dtype): a
+:class:`ProgramCache` turns an owner's calls on a device list into
+programs by one rule. On one card, or a list that repeats it, a call is one
+program per input key, each replay's output copied out
+(:func:`run_copied`), as JAX hands out a fresh buffer per call; over
+distinct cards a capture cannot hold the call, so it runs eagerly on the
+first card with each card's share of each pass a program of its own,
+captured on that card (:class:`CardPrograms`).
+
+Launch counters (:data:`mpgan_torch.tracing.COUNTERS`) count where a
+kernel wrapper is called; a capture's launches do not run then, so
+:class:`Graph` puts the counters back after it, and each replay adds its
+graph's launches.
 
 Spans (:mod:`mpgan_torch.tracing`): ``graph.capture``, every capture;
-``train.replay``, the host's launch of a train program's replay, with the
-replay's interval on the card. A span given a card inside a captured
-function (the upscaler's passes) is timed on the card at every replay by
-events recorded into the graph, read for the last traced replay.
+``train.replay``, the host's launch of a train program's replay, with its
+interval on the card. A span given a card inside a captured function (the
+upscaler's passes) is timed on the card at every replay by events recorded
+into the graph, read for the last traced replay.
 """
 
 from __future__ import annotations
 
 import gc
+import itertools
+from collections import OrderedDict
 
 import torch
 
 from mpgan_torch import tracing
-from mpgan_torch.ops import conv_kernel, warp_kernel
+from mpgan_torch.parallel.mesh import canonical
+
+# programs a cache keeps: each holds a memory pool somewhat above the
+# eager call's peak (2.33 GB against 1.72 GB at 64³→256³ bf16 on an H100,
+# chip_smoke.py phase 4)
+MAX_PROGRAMS = 2
 
 
 class Graph:
     """A function captured once as a CUDA graph and replayed: the capture
-    primitive of :class:`Program` and of the inference programs.
+    primitive of :class:`GraphedProgram`.
 
     ``Graph(fn, device, generator)`` captures ``fn()`` on the card
     ``device`` with ``generator`` (a CUDA ``torch.Generator``, or None for
     a function that draws nothing) registered; :meth:`replay` runs it and
-    returns the outputs the capture returned, which every replay
+    returns the outputs the capture returned (``out``), which every replay
     overwrites; :meth:`reset` releases the graph and its memory pool.
-    ``launches`` is (forward, backward) warp kernel launches in the graph,
-    ``conv_launches`` its generator convolution kernels
-    (:mod:`mpgan_torch.ops.conv_kernel`);
-    ``spans`` (a :class:`mpgan_torch.tracing.Captured`) the events that
-    the spans inside ``fn`` given a card recorded into it, which each
-    replay records again and :func:`mpgan_torch.tracing.spans` reads for
-    the last traced replay.
+    ``counts`` are the graph's launches by registered counter,
+    ``launches`` the (forward, backward) warp ones (``warp``,
+    ``warp_bwd``), which the train step checks; ``spans`` (a
+    :class:`mpgan_torch.tracing.Captured`) the events that the spans
+    inside ``fn`` given a card recorded into it, which each replay records
+    again and :func:`mpgan_torch.tracing.spans` reads for the last traced
+    replay.
 
     The capture runs on a new stream of ``device`` with ``device`` current.
     ``torch.cuda.graph``'s own side stream is made once per process, on
@@ -118,8 +112,8 @@ class Graph:
                     "with a CUDA graph (CUDAGraph.register_generator_state), "
                     "which the graphed train step draws its batches from")
             graph.register_generator_state(generator)
-        n0 = (warp_kernel.launches, warp_kernel.bwd_launches)
-        c0 = conv_kernel.launches
+        held = {name: getattr(mod, attr)
+                for name, (mod, attr) in tracing.COUNTERS.items()}
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -131,20 +125,23 @@ class Graph:
         finally:
             if collecting:
                 gc.enable()
-        self.launches = (warp_kernel.launches - n0[0],
-                         warp_kernel.bwd_launches - n0[1])
-        self.conv_launches = conv_kernel.launches - c0
         # capture recorded these launches; they run at each replay
-        warp_kernel.launches, warp_kernel.bwd_launches = n0
-        conv_kernel.launches = c0
+        self.counts = {}
+        for name, (mod, attr) in tracing.COUNTERS.items():
+            n = getattr(mod, attr) - held.get(name, 0)
+            if n:
+                self.counts[name] = n
+                setattr(mod, attr, held.get(name, 0))
+        self.launches = (self.counts.get("warp", 0),
+                         self.counts.get("warp_bwd", 0))
         self.graph = graph
 
     def replay(self):
         with tracing.replay(self.spans):
             self.graph.replay()
-        warp_kernel.launches += self.launches[0]
-        warp_kernel.bwd_launches += self.launches[1]
-        conv_kernel.launches += self.conv_launches
+        for name, n in self.counts.items():
+            mod, attr = tracing.COUNTERS[name]
+            setattr(mod, attr, getattr(mod, attr) + n)
         return self.out
 
     def reset(self) -> None:
@@ -152,18 +149,198 @@ class Graph:
         self.graph = self.out = None
 
 
-class Program:
-    """One device program of a stage runtime: ``step`` (a
-    :class:`~mpgan_torch.train.loop.TrainStep`) with lazy R1 on or off.
-    ``program(alpha) → metrics``; eager at its first use, captured at its
-    second, replayed after (module docstring). Does not advance the step
-    counter."""
+def spans_cards(devices) -> bool:
+    """Whether a device list names more than one device."""
+    return devices is not None and len({canonical(d) for d in devices}) > 1
 
-    def __init__(self, step, r1: bool, generator: torch.Generator):
-        self.step, self.r1, self.generator = step, r1, generator
-        self.alpha = torch.zeros((), dtype=torch.float64, device=step.device)
+
+def graphable(device, devices=None) -> bool:
+    """Whether calls on ``device`` (split over ``devices``) can replay
+    captured programs: CUDA graphs exist on every device named. On one
+    card (a list that repeats it included) one capture holds the whole
+    call; over distinct cards each card's shares are programs of their
+    own (:class:`CardPrograms`), since a capture lives on one device."""
+    return all(Graph.available(d) for d in [device, *(devices or ())])
+
+
+class GraphedProgram:
+    """``fn(*xs)`` for inputs of one shape and dtype each as one captured
+    CUDA graph, by the rule of the module docstring: eager at the first
+    use (the inputs moved to ``device``), captured at the second, replayed
+    after. The static inputs ``xs`` lie on ``device``, each with its
+    input's strides: cuDNN picks a convolution's kernels by its input's
+    layout, and a card's share of a split is a strided view on the first
+    card. From the second use on, ``program(*xs)`` returns the graph's
+    static output: a caller that keeps it copies it first
+    (:func:`run_copied`). An input may be None (a pass without velocity);
+    the captured function then gets None there too.
+
+    An input may lie on the host. A replay raises ``RuntimeError`` when a
+    parameter or buffer of ``modules`` no longer lies where it lay at the
+    capture (a module moved or its tensors replaced: the graph would read
+    the old storage); values changed in place are read by the replay.
+    ``generator`` (a ``torch.Generator`` of ``device``) is registered with
+    the graph: a replay draws from its state at the call, as an eager call
+    does (the caller reseeds it)."""
+
+    def __init__(self, fn, modules, device, generator=None):
+        self.fn = fn
+        self.modules = tuple(modules)
+        self.device = canonical(device)
+        self.generator = generator
         self.uses = 0
         self.graph: Graph | None = None
+        self.xs: list[torch.Tensor | None] = []
+        self.storage: list[int] = []
+
+    def _storage(self) -> list[int]:
+        return [t.data_ptr() for m in self.modules
+                for t in itertools.chain(m.parameters(), m.buffers())]
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def __call__(self, *xs: torch.Tensor | None):
+        self.uses += 1
+        if self.uses == 1:
+            return self.warm_up(*xs)
+        if self.graph is None:
+            self.capture(xs)
+        elif self.modules and self._storage() != self.storage:
+            raise RuntimeError(
+                "a generator's parameters were moved or replaced since its "
+                "CUDA graph was captured; make the upscaler or pipeline anew")
+        else:
+            self._fill(xs)
+        return self.replay()
+
+    def warm_up(self, *xs):
+        """The eager first use."""
+        return self.fn(*(None if x is None else x.to(self.device)
+                         for x in xs))
+
+    def capture(self, xs) -> None:
+        self.xs = [None if x is None else torch.empty_strided(
+            x.shape, x.stride(), dtype=x.dtype, device=self.device)
+            for x in xs]
+        self._fill(xs)
+        self.storage = self._storage()
+        self.graph = Graph(self._run_static, self.device, self.generator)
+
+    def _run_static(self):
+        return self.fn(*self.xs)
+
+    def replay(self):
+        return self.graph.replay()
+
+    def _fill(self, xs) -> None:
+        for static, x in zip(self.xs, xs, strict=True):
+            if static is not None:
+                static.copy_(x)
+
+    def release(self) -> None:
+        """Release the graph, its memory pool and the static inputs."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.xs = []
+
+
+def run_copied(program: GraphedProgram, *xs) -> torch.Tensor:
+    """``program(*xs)``, a replay's output copied on the device: the
+    program's next replay overwrites its own output, so every caller gets
+    a fresh tensor, as JAX hands out a fresh buffer per call."""
+    out = program(*xs)
+    return out.clone() if program.captured else out
+
+
+class ProgramCache(OrderedDict):
+    """An owner's programs by key, least recently used first, for its
+    calls on ``device`` split over ``devices`` (module docstring). Beyond
+    ``limit`` (None keeps all) the least recently used one's graphs and
+    memory pools are released and it is dropped: that key starts again
+    from an eager use."""
+
+    limit: int | None = MAX_PROGRAMS
+
+    def __init__(self, device=None, devices=None):
+        super().__init__()
+        self.device = None if device is None else canonical(device)
+        self.split = spans_cards(devices)
+
+    def program(self, key, make, modules=()):
+        """The program of ``key``, made by ``make()`` when absent or made
+        over other ``modules`` (a new replica: the old program is
+        released), and made the most recently used."""
+        program = self.get(key)
+        if program is None or program.modules != modules:
+            if program is not None:
+                program.release()
+            program = self[key] = make()
+        self.move_to_end(key)
+        if self.limit is not None and len(self) > self.limit:
+            self.popitem(last=False)[1].release()
+        return program
+
+    def run(self, key, fn, modules, *xs, copied: bool = True):
+        """``fn(*xs, programs=None)`` over ``modules``: on one card as
+        ``key``'s program, a replay's output copied out unless ``copied``
+        is false (a caller that copies it at once); over distinct cards on
+        the inputs moved to the first card, with ``key``'s
+        :class:`CardPrograms` as ``programs``."""
+        if self.split:
+            cards = self.program(key, lambda: CardPrograms(modules), modules)
+            return fn(*(None if x is None else x.to(self.device)
+                        for x in xs), programs=cards)
+        program = self.program(
+            key, lambda: GraphedProgram(fn, modules, self.device), modules)
+        return run_copied(program, *xs) if copied else program(*xs)
+
+    def release(self) -> None:
+        for program in self.values():
+            program.release()
+        self.clear()
+
+
+class CardPrograms(ProgramCache):
+    """The shares of one key's calls split over distinct cards (JAX's
+    one program over the mesh): a :class:`GraphedProgram` per (generator,
+    its keywords, card, share shape, dtype), run on the generator's
+    replica on that card (a new replica gets a new program) and captured
+    there. Each replay's output is copied on the card's stream before the
+    first card gathers it: a device list that repeats a card replays one
+    program for several of its shares. ``modules`` are the owner's."""
+
+    limit = None
+
+    def __init__(self, modules=()):
+        super().__init__()
+        self.modules = tuple(modules)
+
+    def share(self, gen, kw: dict, x: torch.Tensor, device, rep):
+        """``gen``'s call with keywords ``kw`` on the share ``x``, which
+        lies on ``device``, as that card's program over ``rep``, ``gen``'s
+        replica there."""
+        key = (gen, tuple(sorted(kw.items())), device, tuple(x.shape),
+               x.dtype)
+        program = self.program(key, lambda: GraphedProgram(
+            lambda y: rep(y, **kw), (rep,), device), (rep,))
+        return run_copied(program, x)
+
+
+class Program(GraphedProgram):
+    """One device program of a stage runtime: ``step`` (a
+    :class:`~mpgan_torch.train.loop.TrainStep`) with lazy R1 on or off,
+    over no inputs and no modules (a replay walks no parameters);
+    ``program(alpha) → metrics``. Its eager first use and its capture
+    check the warp launches; a replay is a ``train.replay`` span. Does not
+    advance the step counter."""
+
+    def __init__(self, step, r1: bool, generator: torch.Generator):
+        super().__init__(self._run, (), step.device, generator)
+        self.step, self.r1 = step, r1
+        self.alpha = torch.zeros((), dtype=torch.float64, device=step.device)
 
     def _run(self) -> dict:
         return self.step.run(self.alpha, self.generator, self.r1)
@@ -171,19 +348,18 @@ class Program:
     def __call__(self, alpha: float) -> dict:
         if self.step.fade:
             self.alpha.fill_(alpha)
-        self.uses += 1
-        if self.uses == 1:
-            return self.step.run_checked(self.alpha, self.generator, self.r1)
-        if self.graph is None:
-            self.graph = Graph(self._run, self.step.device, self.generator)
-            self.step.check_launches(self.graph.launches)
+        return super().__call__()
+
+    def warm_up(self) -> dict:
+        return self.step.run_checked(self.alpha, self.generator, self.r1)
+
+    def capture(self, xs) -> None:
+        super().capture(xs)
+        self.step.check_launches(self.graph.launches)
+
+    def replay(self) -> dict:
         with tracing.span("train.replay", self.step.device):
             return dict(self.graph.replay())
-
-    def release(self) -> None:
-        if self.graph is not None:
-            self.graph.reset()
-            self.graph = None
 
 
 class Programs:

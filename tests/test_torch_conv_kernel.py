@@ -360,7 +360,7 @@ def test_cuda_captured_replay_equals_eager():
         eager = g(x)
         n0 = ck.launches
         graph = graphed.Graph(lambda: g(x), dev)
-        assert ck.launches == n0 and graph.conv_launches == 10
+        assert ck.launches == n0 and graph.counts == {"conv": 10}
         out = graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)

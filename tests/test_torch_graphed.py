@@ -1,7 +1,8 @@
 """The graphed train step (mpgan_torch.train.graphed) on the CPU, where the
-capture primitive is replaced by a stub that records its calls and runs
-the captured function at each replay, and on a card (marked ``cuda``;
-skipped without one).
+capture primitive is replaced by tests/_torch_graph_stub.py's
+``StubGraph``, which records its calls (with the program's R1 flag and,
+at a replay, the generator's seed) and runs the captured function at each
+replay, and on a card (marked ``cuda``; skipped without one).
 
 - Three steps at stage 2 with fade through the runtime's programs,
   alpha 0.3, 0.5 and 0.7 in the programs' fade-weight tensors, the step
@@ -28,6 +29,12 @@ skipped without one).
   and the metrics), each step's program follows from the step counter
   alone (so ranks that share it pick alike), and the run equals the
   eager rank bit for bit.
+- The program layer itself, through the stub: a :class:`ProgramCache`'s
+  program per key, its eviction beyond ``MAX_PROGRAMS`` with release, a
+  new replica's new program and its split over distinct cards; and a
+  launch counter a kernel wrapper registers (``tracing.count_launches``)
+  put back after a capture and added at each replay (the CUDA primitives
+  stubbed).
 - On a card: replay against eager stepping, bit for bit in float32 under
   cuDNN's deterministic mode, over a growth boundary with fade and R1,
   alone and as the rank of an NCCL group of one; the warp launch counts;
@@ -37,16 +44,22 @@ skipped without one).
   no:cacheprovider tests/test_torch_graphed.py -m cuda`` runs the rest.
 """
 
+import contextlib
+import sys
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from mpgan_torch.data import pipeline as tpipeline
+from _torch_graph_stub import StubGraph, install
+from _torch_graph_stub import small_config as _config
+from _torch_graph_stub import tile_creator as _tc
+from mpgan_torch import tracing
 from mpgan_torch.ops import warp_kernel
 from mpgan_torch.parallel import mesh as pmesh
 from mpgan_torch.train import graphed
 from mpgan_torch.train import loop as tloop
-from mpgan_torch.train import recipe
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -59,36 +72,18 @@ K3_METRIC_RTOL = 5e-4
 K3_PARAM_ATOL = 2e-3
 
 
-class StubGraph:
-    """The capture primitive's stand-in: records capture, replay and reset
-    (with the program's R1 flag and the generator's seed at each replay)
-    in ``log``, and runs the captured function at each replay."""
-
-    log: list = []
-
-    @staticmethod
-    def available(device):
-        return True
-
-    def __init__(self, fn, device, generator):
-        self.fn, self.generator = fn, generator
-        self.r1 = fn.__self__.r1
-        self.launches = (0, 0)
-        self.log.append(("capture", self.r1))
-
-    def replay(self):
-        self.log.append(("replay", self.r1, self.generator.initial_seed()))
-        return self.fn()
-
-    def reset(self):
-        self.log.append(("reset", self.r1))
+def _r1_and_seed(graph, event):
+    """A log entry's detail: the capturing program's R1 flag and, at a
+    replay, the generator's seed."""
+    r1 = graph.fn.__self__.r1
+    if event == "replay":
+        return r1, graph.generator.initial_seed()
+    return (r1,)
 
 
 @pytest.fixture
 def stub(monkeypatch):
-    StubGraph.log = []
-    monkeypatch.setattr(graphed, "Graph", StubGraph)
-    return StubGraph
+    return install(monkeypatch, _r1_and_seed)
 
 
 def test_k3_fade_steps_match_jax_scan(monkeypatch, stub):
@@ -134,21 +129,6 @@ def test_k3_fade_steps_match_jax_scan(monkeypatch, stub):
                                        want[k].numpy(), rtol=0,
                                        atol=K3_PARAM_ATOL,
                                        err_msg=f"{what} {k}")
-
-
-def _config(**train_kw):
-    cfg = recipe.flagship_config("float32", batch=2, tile=4)
-    cfg.model.n_base_filters = 8
-    cfg.model.n_res_blocks = 1
-    cfg.model.disc_base_filters = 8
-    for k, v in train_kw.items():
-        setattr(cfg.train, k, v)
-    return cfg
-
-
-def _tc(device="cpu"):
-    ds = recipe.synthetic_dataset(size=8, up=4, seed=2)
-    return tpipeline.TileCreator(ds, 4, density_threshold=0.0, device=device)
 
 
 def _growing_config():
@@ -304,6 +284,82 @@ def test_an_nccl_rank_replays_its_collectives(group, monkeypatch, stub):
     assert got.keys() == want.keys()
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+# ------------------------------------------------------- the program layer
+
+
+def test_program_cache_keys_evicts_and_follows_the_replica(monkeypatch):
+    """One program per key, eager at its first use, captured at its second
+    and replayed after, each replay's output copied out; beyond
+    ``MAX_PROGRAMS`` the least recently used key's program is released; a
+    call over another module (a new replica) releases its key's program
+    and starts a new one; over distinct cards the call runs with its key's
+    ``CardPrograms``."""
+    stub = install(monkeypatch)
+    x = torch.ones(3, 2)
+    old, new = torch.nn.Linear(2, 2), torch.nn.Linear(2, 2)
+
+    def fn(module):
+        return lambda y, programs=None: module(y)
+    cache = graphed.ProgramCache("cpu")
+    assert not cache.split and cache.limit == graphed.MAX_PROGRAMS == 2
+    with torch.no_grad():
+        outs = [cache.run("a", fn(old), (old,), x) for _ in range(3)]
+        assert stub.log == ["capture", "replay", "replay"]
+        assert outs[1] is not outs[2] and torch.equal(outs[2], old(x))
+        first = cache["a"]
+        for key in ("b", "b", "a", "c"):
+            cache.run(key, fn(old), (old,), x)
+        # b was used less recently than a: released and dropped
+        assert list(cache) == ["a", "c"] and stub.log[-1] == "reset"
+        assert cache["a"] is first and first.captured
+        got = cache.run("a", fn(new), (new,), x)
+        assert not first.captured and stub.log.count("reset") == 2
+        assert cache["a"].modules == (new,) and cache["a"].uses == 1
+        assert torch.equal(got, new(x))
+        cards = [torch.device("cpu", i) for i in range(2)]
+        split = graphed.ProgramCache("cpu", cards)
+        seen = []
+        split.run("a", lambda y, programs=None: seen.append(programs),
+                  (old,), x)
+    assert split.split and seen == [split["a"]]
+    assert isinstance(seen[0], graphed.CardPrograms)
+    assert seen[0].modules == (old,) and seen[0].limit is None
+
+
+def test_a_registered_counter_is_put_back_and_added_at_replays(monkeypatch):
+    """A kernel wrapper's launch counter, registered by name in
+    ``tracing.COUNTERS``: a capture that launched through it leaves it as
+    it was, each replay adds the capture's launches, and the warp pair is
+    ``Graph.launches``. The CUDA primitives are stubbed."""
+    fake = types.ModuleType("fake_kernel")
+    fake.launches = 5
+    monkeypatch.setitem(sys.modules, fake.__name__, fake)
+    monkeypatch.setattr(tracing, "COUNTERS", dict(tracing.COUNTERS))
+    tracing.count_launches(fake.__name__, fake="launches")
+
+    class CUDAGraph:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", CUDAGraph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(warp_kernel, "bwd_launches", 7)
+
+    def fn():
+        fake.launches += 3
+        warp_kernel.bwd_launches += 1
+    g = graphed.Graph(fn, torch.device("cuda", 0))
+    assert (fake.launches, warp_kernel.bwd_launches) == (5, 7)
+    assert g.counts == {"fake": 3, "warp_bwd": 1} and g.launches == (0, 1)
+    g.replay()
+    g.replay()
+    assert (fake.launches, warp_kernel.bwd_launches) == (11, 9)
 
 
 # ------------------------------------------------------------------ card

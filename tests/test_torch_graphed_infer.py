@@ -1,13 +1,11 @@
 """The graphed upscaler and sweeps (mpgan_torch.infer.assemble
-``make_graphed_upscaler``, ``GraphedProgram``) on the CPU, where the
-capture primitive is replaced by a stub, and on a card (marked ``cuda``;
-skipped without one).
+``make_graphed_upscaler`` over mpgan_torch.train.graphed's programs) on
+the CPU, where the capture primitive is replaced by
+tests/_torch_graph_stub.py's ``StubGraph``, and on a card (marked
+``cuda``; skipped without one).
 
-The stub (:class:`AliasingGraph`) is stricter than the train step's
-``StubGraph`` (tests/test_torch_graphed.py): its capture runs the function
-once and fills the outputs with NaN (a capture records work without
-running it), and each replay writes into those same output tensors, as a
-CUDA graph writes its static outputs. A caller that handed out a replay's
+The stub's replays write into the outputs its first replay returned, as a
+CUDA graph writes its static outputs: a caller that handed out a replay's
 output would see it overwritten by the next replay.
 
 - The graphed upscaler over a small 2-stage chain (base 8, one res block,
@@ -33,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_graph_stub import install
 from mpgan_torch import serve
 from mpgan_torch.infer import assemble as TA
 from mpgan_torch.models import generator as TG
@@ -47,37 +46,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 ATOL = 1e-5  # random-weight chains against JAX (tests/test_torch_infer.py)
 
 
-class AliasingGraph:
-    """The capture primitive's stand-in (module docstring): logs capture,
-    replay and reset in ``log``."""
-
-    log: list = []
-
-    @staticmethod
-    def available(device):
-        return True
-
-    def __init__(self, fn, device, generator=None):
-        self.fn, self.device = fn, device
-        self.out = fn().fill_(float("nan"))
-        self.launches = (0, 0)
-        self.log.append("capture")
-
-    def replay(self):
-        self.out.copy_(self.fn())
-        self.log.append("replay")
-        return self.out
-
-    def reset(self):
-        self.log.append("reset")
-        self.out = None
-
-
 @pytest.fixture
 def stub(monkeypatch):
-    AliasingGraph.log = []
-    monkeypatch.setattr(graphed, "Graph", AliasingGraph)
-    return AliasingGraph
+    return install(monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -158,7 +129,7 @@ def test_a_third_shape_evicts_the_least_recent_program(stub):
                       for v in (a, b))
     upscale(c)
     # b was used less recently than a: released and dropped
-    assert stub.log[-1] == "reset" and TA.MAX_PROGRAMS == 2
+    assert stub.log[-1] == "reset" and graphed.MAX_PROGRAMS == 2
     assert prog_b.graph is None and prog_a.captured
     assert list(upscale.programs) == [(a.shape, torch.float32),
                                       (c.shape, torch.float32)]
@@ -191,7 +162,7 @@ def test_graphed_upscaler_needs_one_card():
     g1, g2 = _chain()
     with pytest.raises(ValueError, match="one CUDA card"):
         TA.make_graphed_upscaler(g1, g2, 4)
-    assert not TA.graphable("cpu")
+    assert not graphed.graphable("cpu")
 
 
 def test_graphable_device_lists(monkeypatch):
@@ -200,14 +171,16 @@ def test_graphable_device_lists(monkeypatch):
     tells the two apart."""
     cpu = torch.device("cpu")
     cards = [torch.device("cuda", i) for i in range(2)]
-    assert TA.graphable(cards[0]) and TA.graphable(cards[0], cards)
-    assert not TA.graphable(cards[0], [cards[0], cpu])
+    assert graphed.graphable(cards[0]) and graphed.graphable(cards[0], cards)
+    assert not graphed.graphable(cards[0], [cards[0], cpu])
     monkeypatch.setattr(graphed.Graph, "available",
                         staticmethod(lambda device: True))
-    assert TA.graphable(cpu) and TA.graphable(cpu, [cpu] * 2)
-    assert TA.graphable(cpu, [cpu, torch.device("cuda", 1)])
-    assert not TA.spans_cards(None) and not TA.spans_cards([cpu] * 2)
-    assert not TA.spans_cards([cards[1]] * 3) and TA.spans_cards(cards)
+    assert graphed.graphable(cpu) and graphed.graphable(cpu, [cpu] * 2)
+    assert graphed.graphable(cpu, [cpu, torch.device("cuda", 1)])
+    assert not graphed.spans_cards(None)
+    assert not graphed.spans_cards([cpu] * 2)
+    assert not graphed.spans_cards([cards[1]] * 3)
+    assert graphed.spans_cards(cards)
 
 
 @pytest.mark.parametrize("which", ["intermediates", "finals"])

@@ -1,7 +1,7 @@
 """The pipeline's stages as CUDA graphs (mpgan_torch.infer.pipeline) on
 the CPU, where the capture primitive is replaced by
-``AliasingGraph`` (tests/test_torch_graphed_infer.py: a replay writes
-into the captured outputs, so a frame handed over without a copy would be
+tests/_torch_graph_stub.py's ``StubGraph`` (a replay writes into the
+first replay's outputs, so a frame handed over without a copy would be
 overwritten by the stage's next replay), and on a card (marked ``cuda``;
 skipped without one).
 
@@ -21,7 +21,7 @@ skipped without one).
   stage on each card, each graphed on its own card. These tests import
   no JAX.
 
-The eager pipeline is built while ``assemble.graphable`` answers False.
+The eager pipeline is built while ``graphed.graphable`` answers False.
 """
 
 import contextlib
@@ -31,11 +31,11 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_graph_stub import install
 from mpgan_torch.infer import assemble as TA
 from mpgan_torch.infer import pipeline as TPP
 from mpgan_torch.models import generator as TG
 from mpgan_torch.train import graphed
-from test_torch_graphed_infer import AliasingGraph
 
 torch.set_num_threads(1)
 
@@ -48,15 +48,14 @@ CPU = torch.device("cpu")
 
 @pytest.fixture
 def stub(monkeypatch):
-    AliasingGraph.log = []
-    monkeypatch.setattr(graphed, "Graph", AliasingGraph)
-    return AliasingGraph
+    return install(monkeypatch)
 
 
 def _eager(*args, **kwargs):
     """An InferencePipeline with no stage graphed."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(TA, "graphable", lambda device, devices=None: False)
+        mp.setattr(graphed, "graphable",
+                   lambda device, devices=None: False)
         pp = TPP.InferencePipeline(*args, **kwargs)
     assert not any(st.graphed for st in pp.stages)
     return pp
@@ -128,7 +127,7 @@ def test_graphed_stages_equal_eager_and_jax(stub, streams, n_stages):
 def test_stage_graphing_rule(monkeypatch):
     """A stage over one device, repeated or not, replays its whole pass as
     one graph; a stage over distinct devices (default_split(4, 2, 4) =
-    (1, 3)) replays each card's share (``split``)."""
+    (1, 3)) replays each card's share (its programs' ``split``)."""
     monkeypatch.setattr(graphed.Graph, "available",
                         staticmethod(lambda device: True))
     # the stages' streams are never used here
@@ -138,10 +137,10 @@ def test_stage_graphing_rule(monkeypatch):
     pp = TPP.InferencePipeline(g1, g2, 4, devices=cards)
     assert pp.split == (1, 3)
     assert [st.graphed for st in pp.stages] == [True, True]
-    assert [st.split for st in pp.stages] == [False, True]
+    assert [st.programs.split for st in pp.stages] == [False, True]
     pp = TPP.InferencePipeline(g1, g2, 4, devices=[cards[0]] * 4)
     assert [st.graphed for st in pp.stages] == [True, True]
-    assert [st.split for st in pp.stages] == [False, False]
+    assert [st.programs.split for st in pp.stages] == [False, False]
     pp = TPP.InferencePipeline(g1, g2, 4, devices=cards[:2])
     assert pp.split == (1, 1)
     assert [st.device for st in pp.stages] == cards[:2]

@@ -1,14 +1,15 @@
 """The solver's step and the datagen frame as CUDA graphs
 (mpgan_torch.solver.graphed ``GraphedStep``, mpgan_torch.solver.datagen),
-and the slice-split upscaler graphed per card (mpgan_torch.infer.assemble
-``CardPrograms``), on the CPU with the capture primitive replaced by a
-stub, and on cards (marked ``cuda``; skipped without them).
+and the slice-split upscaler graphed per card (mpgan_torch.train.graphed
+``CardPrograms``), on the CPU with the capture primitive replaced by
+tests/_torch_graph_stub.py's ``StubGraph``, and on cards (marked
+``cuda``; skipped without them).
 
-The stub (:class:`AliasingGraph`) runs the captured function once at the
-capture with a registered generator's state put back after it (a capture
-records draws without making them), and each replay writes into the
-outputs the capture returned, as a CUDA graph writes its static outputs:
-a caller that kept a replay's output would see it overwritten.
+The stub's capture runs nothing (a capture records draws without making
+them), and each replay after the first writes into the outputs the first
+returned, as a CUDA graph writes its static outputs: a caller that kept a
+replay's output would see it overwritten. Its log notes each capture's
+device.
 
 - ``GraphedStep`` over 3 steps (3D Jacobi and CG with an obstacle, a
   moving obstacle, no inflow, 2D; 16³ and 32²) equals the eager step bit
@@ -39,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_graph_stub import install
 from mpgan_torch.infer import assemble as TA
 from mpgan_torch.infer import pipeline as TPP
 from mpgan_torch.models import generator as TG
@@ -59,49 +61,17 @@ N = 16             # 3D fields; 2D fields are 2N
 STEPS = 3
 
 
-class AliasingGraph:
-    """The capture primitive's stand-in (module docstring); logs capture,
-    replay and reset in ``log`` with the device of each capture."""
-
-    log: list = []
-
-    @staticmethod
-    def available(device):
-        return True
-
-    def __init__(self, fn, device, generator=None):
-        self.fn, self.device = fn, torch.device(device)
-        held = None if generator is None else generator.get_state()
-        self.out = fn()
-        if held is not None:
-            generator.set_state(held)
-        self.launches = (0, 0)
-        self.log.append(("capture", self.device))
-
-    def replay(self):
-        new = self.fn()
-        if isinstance(self.out, torch.Tensor):
-            self.out.copy_(new)
-        else:
-            for o, n in zip(self.out, new, strict=True):
-                o.copy_(n)
-        self.log.append(("replay", self.device))
-        return self.out
-
-    def reset(self):
-        self.log.append(("reset", self.device))
-        self.out = None
-
-
 def _count(log, what):
     return sum(1 for entry in log if entry[0] == what)
 
 
+def _device(graph, event):
+    return (graph.device,)
+
+
 @pytest.fixture
 def stub(monkeypatch):
-    AliasingGraph.log = []
-    monkeypatch.setattr(graphed, "Graph", AliasingGraph)
-    return AliasingGraph
+    return install(monkeypatch, _device)
 
 
 # ------------------------------------------------------------------ step
@@ -210,7 +180,7 @@ def test_graphed_step_refuses_the_cpu():
 
 def test_reseeded_generator_draws_what_frame_generator_draws(stub):
     gen = torch.Generator()
-    program = TA.GraphedProgram(
+    program = graphed.GraphedProgram(
         lambda: tnoise.value_noise_3d((N, N, N), gen), (), "cpu", gen)
     for t in range(4):      # eager, capture + replay, replays
         gen.manual_seed(tnoise.frame_seed(5, t))
@@ -280,13 +250,12 @@ def test_graphed_datagen_writes_the_eager_files(tmp_path, fixed_clock,
                                      with_obstacle=scene == "plume",
                                      save_flags=True, scene=scene, **kw)
     eager = run(str(tmp_path / "eager"))
-    AliasingGraph.log = []
-    monkeypatch.setattr(graphed, "Graph", AliasingGraph)
+    stub = install(monkeypatch, _device)
     got = run(str(tmp_path / "graphed"))
     assert not eager["graphed"] and got["graphed"]
     names = _same_files(str(tmp_path / "eager"), str(tmp_path / "graphed"))
     assert len(names) == (4 if scene == "2d" else 5) * 3
-    log = [e[0] for e in AliasingGraph.log]
+    log = [e[0] for e in stub.log]
     # frame_step: 5 steps, captured at the second; frame_outputs: 3
     # frames, captured at the second; both released at the end
     assert log.count("capture") == 2 and log.count("replay") == 4 + 2
@@ -326,7 +295,7 @@ def test_upscaler_over_cards_equals_eager(stub, k):
     g1, g2 = _chain()
     cards = _cpu_cards(k)
     upscale = TA.make_graphed_upscaler(g1, g2, 4, devices=cards)
-    assert upscale.split
+    assert upscale.programs.split
     frames = _frames(4)
     got = [upscale(f) for f in frames]
     # per card one program per pass: the first frame eager, the second
@@ -334,9 +303,8 @@ def test_upscaler_over_cards_equals_eager(stub, k):
     assert _count(stub.log, "capture") == 2 * k
     assert _count(stub.log, "replay") == 3 * 2 * k
     (programs,) = upscale.programs.values()
-    assert {key[2] for key in programs.programs} == set(cards)
-    assert all(p.graph.device == key[2]
-               for key, p in programs.programs.items())
+    assert {key[2] for key in programs} == set(cards)
+    assert all(p.graph.device == key[2] for key, p in programs.items())
     assert len({g.data_ptr() for g in got}) == len(got)
     for f, g in zip(frames, got):
         with torch.inference_mode():
@@ -362,7 +330,7 @@ def test_static_inputs_keep_the_input_strides(stub):
     stack = torch.arange(96.0).reshape(4, 3, 4, 2).permute(1, 0, 2, 3)
     share = torch.tensor_split(stack, 3)[0]
     assert not share.is_contiguous()
-    program = TA.GraphedProgram(lambda y: y * 2, (), "cpu")
+    program = graphed.GraphedProgram(lambda y: y * 2, (), "cpu")
     got = [program(share).clone() for _ in range(3)]
     assert program.captured and program.xs[0].stride() == share.stride()
     assert all(torch.equal(g, share * 2) for g in got)
@@ -380,7 +348,7 @@ def test_missing_copy_out_fails_on_a_repeated_card(stub, monkeypatch):
                 for f in frames]
     upscale = TA.make_graphed_upscaler(g1, g2, 4, devices=cards)
     assert all(torch.equal(upscale(f), w) for f, w in zip(frames, want))
-    monkeypatch.setattr(TA, "run_copied",
+    monkeypatch.setattr(graphed, "run_copied",
                         lambda program, *xs: program(*xs))
     upscale = TA.make_graphed_upscaler(g1, g2, 4, devices=cards)
     got = [upscale(f) for f in frames]
@@ -392,19 +360,20 @@ def test_pipeline_stage_over_cards_equals_eager(stub):
     g1, g2 = _chain(1)
     cards = _cpu_cards(3)
     pp = TPP.InferencePipeline(g1, g2, 4, devices=cards, split=(1, 2))
-    assert [(st.graphed, st.split) for st in pp.stages] == [(True, False),
-                                                            (True, True)]
+    assert [(st.graphed, st.programs.split)
+            for st in pp.stages] == [(True, False), (True, True)]
     frames = [f.numpy() for f in _frames(4, shape=(8, 8, 8, 4), seed=6)]
     got = list(pp.stream(frames))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(TA, "graphable", lambda device, devices=None: False)
+        mp.setattr(graphed, "graphable",
+                   lambda device, devices=None: False)
         eager = TPP.InferencePipeline(g1, g2, 4, devices=cards, split=(1, 2))
     want = list(eager.stream(frames))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     (programs,) = pp.stages[1].programs.values()
-    assert isinstance(programs, TA.CardPrograms)
-    assert {key[2] for key in programs.programs} == set(cards[1:])
+    assert isinstance(programs, graphed.CardPrograms)
+    assert {key[2] for key in programs} == set(cards[1:])
     pp.release()
     assert not any(st.programs for st in pp.stages)
 
@@ -457,7 +426,7 @@ def test_cuda_reseeded_generator_draws_what_frame_generator_draws():
     _need_cards(1)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
-    program = TA.GraphedProgram(
+    program = graphed.GraphedProgram(
         lambda: tnoise.value_noise_3d((32, 32, 32), gen), (), dev, gen)
     for t in range(4):
         gen.manual_seed(tnoise.frame_seed(5, t))
@@ -483,7 +452,8 @@ def test_cuda_graphed_datagen_writes_the_eager_files(tmp_path, fixed_clock,
                                      with_obstacle=scene == "plume",
                                      save_flags=True, scene=scene)
     got = run(str(tmp_path / "graphed"))
-    monkeypatch.setattr(TA, "graphable", lambda device, devices=None: False)
+    monkeypatch.setattr(graphed, "graphable",
+                        lambda device, devices=None: False)
     eager = run(str(tmp_path / "eager"))
     assert got["graphed"] and not eager["graphed"]
     _same_files(str(tmp_path / "eager"), str(tmp_path / "graphed"))
@@ -506,11 +476,11 @@ def test_cuda_upscaler_over_distinct_cards_equals_eager(monkeypatch, k):
     upscale = TA.make_graphed_upscaler(g1, g2, 4, devices=cards)
     got = [upscale(f) for f in frames]
     (programs,) = upscale.programs.values()
-    assert {key[2] for key in programs.programs} == set(cards)
-    assert all(p.captured for p in programs.programs.values())
+    assert {key[2] for key in programs} == set(cards)
+    assert all(p.captured for p in programs.values())
     pp = TPP.InferencePipeline(g1, g2, 4, devices=[cards[0]] + cards,
                                split=(1, k))
-    assert pp.stages[1].split
+    assert pp.stages[1].programs.split
     piped = list(pp.stream([f.cpu().numpy() for f in frames]))
     for d in cards:
         torch.cuda.synchronize(d)

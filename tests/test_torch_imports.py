@@ -1,5 +1,9 @@
 """The port imports no JAX: a static (AST) scan of every module of
-``mpgan_torch/`` and of ``chip_smoke.py``. And the supervising parents of
+``mpgan_torch/`` and of ``chip_smoke.py``. The same scan holds the
+program layer's imports to point down: no solver module imports
+``mpgan_torch.infer``, and ``mpgan_torch/train/graphed.py`` imports neither
+``mpgan_torch.infer`` nor a kernel module of ``mpgan_torch.ops``. And the
+supervising parents of
 ``python -m mpgan_torch.cli ... retryOnError N`` and ``python -m
 mpgan_torch.datagen ... retryOnError N`` never touch CUDA.
 
@@ -23,20 +27,29 @@ def _port_files():
     return sorted(files)
 
 
-def _imported_roots(path):
+def _imported(path):
+    """(module name, line) of each import in ``path``; ``from m import
+    a`` gives ``m`` and ``m.a``."""
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
-                yield a.name.split(".")[0], node.lineno
+                yield a.name, node.lineno
         elif isinstance(node, ast.ImportFrom) and node.module and \
                 node.level == 0:
-            yield node.module.split(".")[0], node.lineno
+            yield node.module, node.lineno
+            for a in node.names:
+                yield f"{node.module}.{a.name}", node.lineno
         elif isinstance(node, ast.Call) and getattr(
                 node.func, "attr", getattr(node.func, "id", "")) in (
                 "import_module", "__import__") and node.args and \
                 isinstance(node.args[0], ast.Constant):
-            yield str(node.args[0].value).split(".")[0], node.lineno
+            yield str(node.args[0].value), node.lineno
+
+
+def _imported_roots(path):
+    for name, line in _imported(path):
+        yield name.split(".")[0], line
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -45,6 +58,24 @@ def test_port_module_imports_no_jax(path):
     assert os.path.exists(path), path
     bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+# (files under a path of the repo, packages they may not import)
+LAYERS = [("mpgan_torch/solver", ("mpgan_torch.infer",)),
+          ("mpgan_torch/train/graphed.py",
+           ("mpgan_torch.infer", "mpgan_torch.ops"))]
+
+
+@pytest.mark.parametrize("where,below", LAYERS, ids=[w for w, _ in LAYERS])
+def test_program_layer_imports_point_down(where, below):
+    path = os.path.join(ROOT, where)
+    files = [path] if path.endswith(".py") else [
+        os.path.join(path, n) for n in sorted(os.listdir(path))
+        if n.endswith(".py")]
+    bad = [(os.path.relpath(f, ROOT), m, ln) for f in files
+           for m, ln in _imported(f)
+           if any(m == b or m.startswith(b + ".") for b in below)]
+    assert files and not bad, bad
 
 
 def test_scan_sees_every_import_form(tmp_path):

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_graph_stub import install, small_config, tile_creator
 from mpgan_torch import tracing
 from mpgan_torch.infer import assemble
 from mpgan_torch.models import generator as TG
@@ -45,7 +46,6 @@ from mpgan_torch.train import graphed, losses
 from mpgan_torch.train import loop as tloop
 from port_bench import manifest
 from port_bench import spans as sp
-from test_torch_graphed import StubGraph, _config, _tc
 
 torch.set_num_threads(1)
 
@@ -76,30 +76,8 @@ def ranges(monkeypatch):
     return entered
 
 
-class CardGraph:
-    """The capture primitive's stand-in for the upscaler: runs the
-    function at the capture and at each replay, its replays writing into
-    the capture's outputs."""
-
-    @staticmethod
-    def available(device):
-        return True
-
-    def __init__(self, fn, device, generator=None):
-        self.fn, self.device = fn, device
-        self.out = fn()
-        self.launches = (0, 0)
-
-    def replay(self):
-        self.out.copy_(self.fn())
-        return self.out
-
-    def reset(self):
-        self.out = None
-
-
 def _split_upscaler(monkeypatch, k=3):
-    monkeypatch.setattr(graphed, "Graph", CardGraph)
+    install(monkeypatch)
     torch.manual_seed(0)
     g1, g2 = TG.make_pass1(2, 8, 1).eval(), TG.make_pass2(2, 8, 1).eval()
     up = assemble.make_graphed_upscaler(
@@ -127,7 +105,7 @@ def test_off_span_stores_nothing_and_opens_no_range(ranges):
 
 
 def test_off_trainer_stores_nothing_and_opens_no_range(ranges):
-    tr = tloop.Trainer(_config(), _tc(), device="cpu")
+    tr = tloop.Trainer(small_config(), tile_creator(), device="cpu")
     tr.fit(2, log_every=1)
     losses.align_triplet(*_triplet(), use_kernel=True)
     assert tracing.spans() == [] and not ranges
@@ -240,7 +218,7 @@ def _tree(rows):
 
 
 def test_trainer_spans_stepping_eagerly():
-    tr = tloop.Trainer(_config(), _tc(), device="cpu")
+    tr = tloop.Trainer(small_config(), tile_creator(), device="cpu")
     with tracing.enable():
         tr.fit(2, log_every=2)
     rows = tracing.spans()
@@ -256,9 +234,9 @@ def test_trainer_spans_stepping_eagerly():
 
 
 def test_trainer_spans_through_the_graphed_programs(monkeypatch):
-    StubGraph.log = []
-    monkeypatch.setattr(graphed, "Graph", StubGraph)
-    tr = tloop.Trainer(_config(), _tc(), device="cpu", graphs=True)
+    install(monkeypatch)
+    tr = tloop.Trainer(small_config(), tile_creator(), device="cpu",
+                       graphs=True)
     with tracing.enable():
         tr.fit(4, log_every=4)
     tree = Counter(_tree(tracing.spans()))
