@@ -52,7 +52,12 @@ exit, and no result line:
             windows, a window one replay of a CUDA graph holding the
             calls (back-to-back eager calls time the host wherever a call
             is shorter than its launch), beside its bound (each tensor
-            read or written once in bf16 at 3.35 TB/s)
+            read or written once in bf16 at 3.35 TB/s); then each
+            upsampling instantiation (CONV_UP_LAYERS, each growth stage's
+            first ResBlock at (2, 2) and (2, 1)) the same way, and equal
+            bit for bit to the unfused pair it replaces (ATen's upsample,
+            then the kernel without it), timed as the library call; its
+            bound reads the low-resolution operand once
 3. bundled  the exported 4x L1 pair on sim_1010c frame 12 (32³→128³): f32
             with TF32 off equals the port's CPU output (atol 1e-4); bf16
             keeps PSNR ≥ 34.5 dB against the ground truth
@@ -367,6 +372,25 @@ CONV_LAYERS = (
     ("g3 conv2+proj", "residual", 128, 512, 512, 16, 16, 32, None),
     ("g3 conv2", "residual", 128, 512, 512, 16, 16, 16, None),
     ("g3 head+skip", "head", 128, 512, 512, 16, 1, (1, 1), "yz"),
+)
+# The upsampling kernels, each growth stage's first ResBlock, at the frame
+# cells' shapes, as (layer, kind, slices, h, w, cin, cout, skip width,
+# factors): h and w are the output's, the upsampled operand is h/fh x w/fw.
+# 8x pass 2's 512 slices are cut to 128 as above.
+CONV_UP_LAYERS = (
+    ("4x g1 s0 conv1 up", "relu", 64, 128, 128, 32, 16, None, (2, 2)),
+    ("4x g2 s0 conv1 up", "relu", 256, 128, 256, 32, 16, None, (2, 1)),
+    ("4x g1 s0 conv2+proj up", "residual", 64, 128, 128, 16, 16, 32, (2, 2)),
+    ("4x g2 s0 conv2+proj up", "residual", 256, 128, 256, 16, 16, 32,
+     (2, 1)),
+    ("4x g1 s1 conv1 up", "relu", 64, 256, 256, 16, 8, None, (2, 2)),
+    ("4x g2 s1 conv1 up", "relu", 256, 256, 256, 16, 8, None, (2, 1)),
+    ("4x g1 s1 conv2+proj up", "residual", 64, 256, 256, 8, 8, 16, (2, 2)),
+    ("4x g2 s1 conv2+proj up", "residual", 256, 256, 256, 8, 8, 16, (2, 1)),
+    ("8x g1 s2 conv1 up", "relu", 64, 512, 512, 8, 8, None, (2, 2)),
+    ("8x g2 s2 conv1 up", "relu", 128, 512, 512, 8, 8, None, (2, 1)),
+    ("8x g1 s2 conv2 up", "residual", 64, 512, 512, 8, 8, 8, (2, 2)),
+    ("8x g2 s2 conv2 up", "residual", 128, 512, 512, 8, 8, 8, (2, 1)),
 )
 BF16_UNIT = 2.0 ** -7  # one bf16 unit in the last place of a value in [1, 2)
 
@@ -815,14 +839,19 @@ def _volume_view(view, b, h, w, c, gen, dev):
     return vol.to(torch.bfloat16).permute(*perm[view])
 
 
-def conv_layer(layer, kind, b, h, w, cin, cout, extra, view, dev):
+def conv_layer(layer, kind, b, h, w, cin, cout, extra, view, dev,
+               up=None):
     """One of :data:`CONV_LAYERS`: the wrapper against its plain version,
     then the kernel's, cuDNN's and the plain version's ms per call
-    (:func:`graph_ms`) beside the layer's bound."""
+    (:func:`graph_ms`) beside the layer's bound. With ``up``, one of
+    :data:`CONV_UP_LAYERS`: the operand read upsampled is made at low
+    resolution, the library call is the unfused pair the kernel replaces
+    (ATen's upsample, then the kernel without it), which must give the
+    kernel's bits, and the bound reads the low-resolution operand once."""
     from mpgan_torch.models import generator as G
     from mpgan_torch.models import init
     from mpgan_torch.ops import conv_kernel as ck
-    from mpgan_torch.ops.upsample import upsample_nchw
+    from mpgan_torch.ops.upsample import upsample_any, upsample_nchw
 
     cpu_gen = torch.Generator().manual_seed(cin * 100 + cout)
     gen = torch.Generator(device=dev).manual_seed(b + h + w)
@@ -830,11 +859,31 @@ def conv_layer(layer, kind, b, h, w, cin, cout, extra, view, dev):
     with torch.no_grad():
         conv.bias.normal_(0.0, 0.1, generator=cpu_gen)
     conv = conv.to(dev)
-    x = (_volume_view(view, b, h, w, cin, gen, dev) if kind == "relu"
-         and view else _volume_view("xy", b, h, w, cin, gen, dev))
-    nbytes = x.numel() * 2 + b * h * w * cout * 2
-    nchw = x.permute(0, 3, 1, 2)
-    if kind == "relu":
+    nbytes = b * h * w * cout * 2
+    if up is None or kind != "relu":
+        x = (_volume_view(view, b, h, w, cin, gen, dev) if kind == "relu"
+             and view else _volume_view("xy", b, h, w, cin, gen, dev))
+        nbytes += x.numel() * 2
+        nchw = x.permute(0, 3, 1, 2)
+    if up is not None:
+        fh, fw = up
+        low = _volume_view("xy", b, h // fh, w // fw,
+                           cin if kind == "relu" else extra, gen, dev)
+        nbytes += low.numel() * 2
+        if kind == "relu":
+            calls = (lambda: ck.conv_relu(low, conv, up),
+                     lambda: ck.conv_relu(upsample_any(low, fh, fw), conv),
+                     lambda: ck.conv_relu_ref(low, conv, up))
+        else:
+            block = G.ResBlock(extra, cout, cpu_gen).to(dev)
+            calls = (lambda: ck.conv_residual(x, block.conv2, low,
+                                              block.proj, up),
+                     lambda: ck.conv_residual(x, block.conv2,
+                                              upsample_any(low, fh, fw),
+                                              block.proj),
+                     lambda: ck.conv_residual_ref(x, block.conv2, low,
+                                                  block.proj, up))
+    elif kind == "relu":
         calls = (lambda: ck.conv_relu(x, conv),
                  lambda: F.relu(G._conv(conv, nchw)),
                  lambda: ck.conv_relu_ref(x, conv))
@@ -877,6 +926,10 @@ def conv_layer(layer, kind, b, h, w, cin, cout, extra, view, dev):
                    "max_abs_err": float(gap_.max()),
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
             del got, want, gap_, tol
+            if up is not None:
+                row["up"] = list(up)
+                row["equal_to_library"] = torch.equal(kernel(), library())
+                assert row["equal_to_library"], layer
             row.update(graph_ms(kernel, dev))
             row.update({f"library_{k}": v
                         for k, v in graph_ms(library, dev).items()})
@@ -889,13 +942,16 @@ def conv_layer(layer, kind, b, h, w, cin, cout, extra, view, dev):
 
 
 def phase_conv(dev):
-    """2c: every layer of :data:`CONV_LAYERS` (:func:`conv_layer`) →
-    the rows."""
+    """2c: every layer of :data:`CONV_LAYERS` and :data:`CONV_UP_LAYERS`
+    (:func:`conv_layer`) → the rows."""
     t0 = phase("2c conv kernels vs plain at the frame cells' layers; ms a "
-               "call against cuDNN and the byte bound")
+               "call against cuDNN (upsampling kernels: against the "
+               "unfused pair) and the byte bound")
+    specs = [(*spec, dev) for spec in CONV_LAYERS] + [
+        (*spec[:8], None, dev, spec[8]) for spec in CONV_UP_LAYERS]
     rows = []
-    for spec in CONV_LAYERS:
-        row = conv_layer(*spec, dev)
+    for spec in specs:
+        row = conv_layer(*spec)
         print("   conv " + json.dumps(row), flush=True)
         rows.append(row)
     done(t0, layers=len(rows),
@@ -1073,8 +1129,9 @@ def conv_launch_counts(g1, g2, lr):
     """The conv kernels' launches over one eager 4x frame and over one
     replayed frame of a graphed upscaler, each count reset just before
     and read just after: 10 a generator call (the stem, 2 stages of 2
-    ResBlocks at 2 each, one head), one call a pass, and no cuDNN
-    forward."""
+    ResBlocks at 2 each, one head), 4 of them reading the stage input
+    upsampled (each stage's first ResBlock), one call a pass, and no
+    cuDNN forward."""
     from mpgan_torch.infer import assemble
     from mpgan_torch.models import generator as G
     from mpgan_torch.ops import conv_kernel as ck
@@ -1084,22 +1141,23 @@ def conv_launch_counts(g1, g2, lr):
         graphed(lr)
     torch.cuda.synchronize()
     n0 = (G.nhwc_forwards, G.cudnn_forwards)
-    ck.launches = 0                                    # path starts
+    ck.launches = ck.up_launches = 0                   # path starts
     with torch.inference_mode():
         assemble.upscale_volume(g1, g2, lr, 4)
     torch.cuda.synchronize()
-    eager = ck.launches                                # path ends
+    eager = (ck.launches, ck.up_launches)              # path ends
     calls = (G.nhwc_forwards - n0[0], G.cudnn_forwards - n0[1])
-    assert calls == (2, 0) and eager == 10 * 2, (calls, eager)
-    ck.launches = 0                                    # path starts
+    assert calls == (2, 0) and eager == (10 * 2, 4 * 2), (calls, eager)
+    ck.launches = ck.up_launches = 0                   # path starts
     graphed(lr)
     torch.cuda.synchronize()
-    replayed = ck.launches                             # path ends
+    replayed = (ck.launches, ck.up_launches)           # path ends
     assert replayed == eager, (replayed, eager)
     assert (G.nhwc_forwards, G.cudnn_forwards) == (n0[0] + 2, n0[1])
     graphed.programs.popitem()[1].release()
-    return {"eager_frame": eager, "graphed_frame": replayed,
-            "per_generator_call": eager // calls[0]}
+    return {"eager_frame": eager[0], "graphed_frame": replayed[0],
+            "per_generator_call": eager[0] // calls[0],
+            "up_eager_frame": eager[1], "up_graphed_frame": replayed[1]}
 
 
 def upscale_turns(g1, g2, lr, frames, windows):

@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from mpgan_torch.models import init
 from mpgan_torch.models.growing import fade_blend
 from mpgan_torch.ops import conv_kernel
-from mpgan_torch.ops.upsample import upsample_any, upsample_nchw
+from mpgan_torch.ops.upsample import upsample_nchw
 
 # forwards run by each path since the last reset (Generator.forward)
 nhwc_forwards = 0
@@ -115,16 +115,23 @@ class Generator(nn.Module):
         """Whether every convolution has an NHWC kernel: the stem and each
         ``conv1`` in :data:`~mpgan_torch.ops.conv_kernel.RELU`, each
         ``conv2`` with its skip in ``RESIDUAL``, each head in ``HEAD``
-        with one output channel."""
-        if (self.stem.in_channels,
-                self.stem.out_channels) not in conv_kernel.RELU:
+        with one output channel; the first ResBlock of a stage that
+        upsamples, which reads the stage input upsampled, in ``RELU_UP``
+        and ``RESIDUAL_UP`` at one of ``UP_FACTORS``."""
+        ck = conv_kernel
+        if (self.stem.in_channels, self.stem.out_channels) not in ck.RELU:
             return False
-        for k in range(len(self.factors)):
+        for k, up in enumerate(self.factors):
+            if up != (1, 1) and (up not in ck.UP_FACTORS
+                                 or self.n_res_blocks < 1):
+                return False
             for i in range(self.n_res_blocks):
                 block = getattr(self, f"block_{k}_{i}")
                 cin, c = block.conv1.in_channels, block.conv1.out_channels
-                if (cin, c) not in conv_kernel.RELU or (
-                        c, cin) not in conv_kernel.RESIDUAL:
+                relu, res = ((ck.RELU_UP, ck.RESIDUAL_UP)
+                             if i == 0 and up != (1, 1)
+                             else (ck.RELU, ck.RESIDUAL))
+                if (cin, c) not in relu or (c, cin) not in res:
                     return False
             head = getattr(self, f"head_{k}")
             if head.out_channels != 1 or (
@@ -200,20 +207,23 @@ class Generator(nn.Module):
     def forward_nhwc(self, x: torch.Tensor, stage: int) -> torch.Tensor:
         """The forward over NHWC activations through
         :mod:`mpgan_torch.ops.conv_kernel` (kernels for CUDA tensors, their
-        plain versions for CPU ones): the stem, per stage the upsample
-        (:func:`~mpgan_torch.ops.upsample.upsample_any`) and the ResBlocks,
-        two launches each, then only the head whose output is used, with
-        the global skip in its epilogue. ``x`` is read at its strides."""
+        plain versions for CPU ones): the stem, per stage the ResBlocks,
+        two launches each, the first of a stage reading the stage input
+        upsampled by the stage's factors in both of its launches (the
+        upsampled tensor is never made), then only the head whose output
+        is used, with the global skip in its epilogue. ``x`` is read at its
+        strides."""
         x = x.to(self.dtype)
         dens = x[..., 0:1] if self.global_skip else None
         h = conv_kernel.conv_relu(x, self.stem)
         for k in range(stage):
-            h = upsample_any(h, *self.factors[k])
+            up = self.factors[k]
             for i in range(self.n_res_blocks):
                 block = getattr(self, f"block_{k}_{i}")
                 h = conv_kernel.conv_residual(
-                    conv_kernel.conv_relu(h, block.conv1), block.conv2, h,
-                    block.proj)
+                    conv_kernel.conv_relu(h, block.conv1, up=up),
+                    block.conv2, h, block.proj, up=up)
+                up = (1, 1)
         return conv_kernel.conv_head(
             h, getattr(self, f"head_{stage - 1}"), dens,
             self._product(stage), self.out_dtype or torch.float32)

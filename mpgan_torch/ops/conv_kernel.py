@@ -20,11 +20,19 @@ captured program reads parameters updated in place:
   global density skip (the generator's input density upsampled
   bilinearly), in the output dtype (epilogue c).
 
+Given ``up`` = (2, 2) or (2, 1), :func:`conv_relu` reads its input, and
+:func:`conv_residual` its skip, at low resolution and upsampled by ``up``
+inside the kernel (a growth stage's first ResBlock): the bits of
+:func:`~mpgan_torch.ops.upsample.upsample_any` rounded to bf16, never
+written out.
+
 The kernels take input widths 4, 8, 16 and 32 and output widths 1, 8, 16
-and 32 (:data:`RELU`, :data:`RESIDUAL`, :data:`HEAD`). The plain versions (``*_ref``) compute the same function
-in float32 with PyTorch's convolution, the parameters rounded to the
-activations' dtype first, and round once; a CPU tensor takes them. A
-CUDA tensor launches the kernel or raises: there is no fallback.
+and 32 (:data:`RELU`, :data:`RESIDUAL`, :data:`HEAD`), upsampled those of
+:data:`RELU_UP` and :data:`RESIDUAL_UP` at :data:`UP_FACTORS`. The plain
+versions (``*_ref``) compute the same function in float32 with PyTorch's
+upsample and convolution, the parameters rounded to the activations'
+dtype first, and round once after each; a CPU tensor takes them. A CUDA
+tensor launches the kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mpgan_torch import _build, tracing
-from mpgan_torch.ops.upsample import upsample_nchw
+from mpgan_torch.ops.upsample import upsample_any, upsample_nchw
 
 # (input width, output width) of conv_relu's kernels
 RELU = frozenset((i, o) for i in (4, 8, 16, 32) for o in (8, 16, 32))
@@ -42,13 +50,21 @@ RELU = frozenset((i, o) for i in (4, 8, 16, 32) for o in (8, 16, 32))
 RESIDUAL = frozenset((c, x) for c in (8, 16, 32) for x in (8, 16, 32))
 # input widths of conv_head's kernels (one output channel)
 HEAD = frozenset((8, 16, 32))
+# the kernels that read an operand upsampled, each growth stage's first
+# ResBlock in every bundled generator: conv_relu's (input width, output
+# width) and conv_residual's (width, skip width), at UP_FACTORS
+RELU_UP = frozenset(((32, 16), (16, 8), (8, 8)))
+RESIDUAL_UP = frozenset(((16, 32), (8, 16), (8, 8)))
+UP_FACTORS = frozenset(((2, 2), (2, 1)))
 
 # Kernel launches since the last reset, incremented only where a kernel
-# is launched. A CUDA graph's replay launches the kernels it captured and
-# adds them here; its capture, which records them without launching,
-# leaves the count as it was (mpgan_torch.train.graphed).
+# is launched, and those of them that read an operand upsampled. A CUDA
+# graph's replay launches the kernels it captured and adds them here; its
+# capture, which records them without launching, leaves the counts as
+# they were (mpgan_torch.train.graphed).
 launches = 0
-tracing.count_launches(__name__, conv="launches")
+up_launches = 0
+tracing.count_launches(__name__, conv="launches", conv_up="up_launches")
 
 _lib = None
 
@@ -82,14 +98,20 @@ def _conv_ref(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
                     _param(conv.bias, x.dtype), padding=conv.padding)
 
 
-def conv_relu_ref(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """Plain version of :func:`conv_relu`."""
+def conv_relu_ref(x: torch.Tensor, conv: nn.Conv2d,
+                  up: tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """Plain version of :func:`conv_relu`: ``x`` upsampled by ``up``
+    (:func:`~mpgan_torch.ops.upsample.upsample_any`), then the conv."""
+    x = upsample_any(x, *up)
     return _conv_ref(x, conv).relu().permute(0, 2, 3, 1).to(x.dtype)
 
 
 def conv_residual_ref(h: torch.Tensor, conv2: nn.Conv2d, x: torch.Tensor,
-                      proj: nn.Conv2d | None) -> torch.Tensor:
-    """Plain version of :func:`conv_residual`."""
+                      proj: nn.Conv2d | None,
+                      up: tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """Plain version of :func:`conv_residual`: ``x`` upsampled by ``up``
+    first, as :func:`conv_relu_ref`."""
+    x = upsample_any(x, *up)
     skip = _nchw(x) if proj is None else _conv_ref(x, proj)
     return ((_conv_ref(h, conv2) + skip).relu().permute(0, 2, 3, 1)
             .to(h.dtype))
@@ -130,9 +152,11 @@ def _check(name: str, x: torch.Tensor) -> None:
 def _launch(mode: int, x: torch.Tensor, conv: nn.Conv2d, out: torch.Tensor,
             skip: torch.Tensor | None = None, proj: nn.Conv2d | None = None,
             dens_hw: tuple[int, int] = (0, 0),
-            slice_major: torch.Tensor | None = None) -> torch.Tensor:
-    global launches
-    b, h, w, cin = x.shape
+            slice_major: torch.Tensor | None = None,
+            up: tuple[int, int] = (1, 1)) -> torch.Tensor:
+    global launches, up_launches
+    b, h, w = out.shape[:3]
+    cin = x.shape[-1]
     cout = conv.out_channels
     wt = conv.weight.detach().float().contiguous()
     bias = conv.bias.detach().float().contiguous()
@@ -155,7 +179,7 @@ def _launch(mode: int, x: torch.Tensor, conv: nn.Conv2d, out: torch.Tensor,
     dev = x.device
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _kernels().mpgan_conv(
-        mode, cin, cout if mode != _MODE_HEAD else 1, cx,
+        mode, cin, cout if mode != _MODE_HEAD else 1, cx, *up,
         x.data_ptr(), *x.stride()[:3], b, h, w, wt.data_ptr(),
         bias.data_ptr(), ptr(skip), *ks, ptr(wp), ptr(bp), *dens_hw,
         out.data_ptr(), int(out.dtype == torch.float32), slice_fastest,
@@ -163,46 +187,67 @@ def _launch(mode: int, x: torch.Tensor, conv: nn.Conv2d, out: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     if err == -1:
         raise ValueError(f"no conv kernel for mode {mode}, widths "
-                         f"{cin} -> {cout} (skip {cx})")
+                         f"{cin} -> {cout} (skip {cx}), upsampled {up}")
     if err != 0:
         raise RuntimeError(f"mpgan_conv launch failed: CUDA error {err}")
     launches += 1
+    up_launches += up != (1, 1)
     return out
 
 
-def conv_relu(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+def _widths(name: str, widths: tuple[int, int], up: tuple[int, int],
+            plain: frozenset, upsampled: frozenset) -> None:
+    """Raise unless a kernel takes ``widths`` at the factors ``up``."""
+    if up == (1, 1) and widths in plain:
+        return
+    if up in UP_FACTORS and widths in upsampled:
+        return
+    raise ValueError(f"{name} has no kernel for widths {widths} "
+                     f"upsampled by {up}")
+
+
+def conv_relu(x: torch.Tensor, conv: nn.Conv2d,
+              up: tuple[int, int] = (1, 1)) -> torch.Tensor:
     """``relu(conv(x) + b)`` → a contiguous ``(B, H, W, C_out)`` tensor in
     ``x``'s dtype: a kernel for a CUDA tensor (bf16, widths in
-    :data:`RELU`), the plain version for a CPU tensor."""
+    :data:`RELU`), the plain version for a CPU tensor. Given ``up`` other
+    than (1, 1), ``x`` is read upsampled by ``up`` and the output is
+    ``up`` times its size (widths in :data:`RELU_UP`)."""
     if x.device.type == "cpu":
-        return conv_relu_ref(x, conv)
+        return conv_relu_ref(x, conv, up)
     _check("conv_relu", x)
-    if (x.shape[-1], conv.out_channels) not in RELU:
-        raise ValueError(f"conv_relu has no kernel for widths "
-                         f"{x.shape[-1]} -> {conv.out_channels}")
-    out = x.new_empty((*x.shape[:3], conv.out_channels))
-    return _launch(_MODE_RELU, _readable(x), conv, out)
+    _widths("conv_relu", (x.shape[-1], conv.out_channels), up, RELU,
+            RELU_UP)
+    b, h, w = x.shape[:3]
+    out = x.new_empty((b, h * up[0], w * up[1], conv.out_channels))
+    return _launch(_MODE_RELU, _readable(x), conv, out, up=up)
 
 
 def conv_residual(h: torch.Tensor, conv2: nn.Conv2d, x: torch.Tensor,
-                  proj: nn.Conv2d | None) -> torch.Tensor:
+                  proj: nn.Conv2d | None,
+                  up: tuple[int, int] = (1, 1)) -> torch.Tensor:
     """A ResBlock's second half: ``relu(conv2(h) + b2 + skip)`` with
     ``skip`` = ``proj(x)`` (a 1x1 conv) or ``x`` itself when ``proj`` is
     None → ``(B, H, W, C)`` in ``h``'s dtype. Kernel or plain version as
-    :func:`conv_relu`; widths in :data:`RESIDUAL`."""
+    :func:`conv_relu`; widths in :data:`RESIDUAL`. Given ``up`` other than
+    (1, 1), ``x`` is read upsampled by ``up``: ``h`` is ``up`` times its
+    size (widths in :data:`RESIDUAL_UP`)."""
     if h.device.type == "cpu":
-        return conv_residual_ref(h, conv2, x, proj)
+        return conv_residual_ref(h, conv2, x, proj, up)
     _check("conv_residual", h)
     _check("conv_residual", x)
     c, cx = h.shape[-1], x.shape[-1]
+    _widths("conv_residual", (c, cx), up, RESIDUAL, RESIDUAL_UP)
     if (conv2.in_channels, conv2.out_channels) != (c, c) or (
-            (c, cx) not in RESIDUAL) or (proj is None and cx != c) or (
-            x.shape[:3] != h.shape[:3]):
+            proj is None and cx != c) or (
+            (x.shape[0], x.shape[1] * up[0], x.shape[2] * up[1])
+            != tuple(h.shape[:3])):
         raise ValueError(f"conv_residual has no kernel for widths {c} with "
-                         f"skip {tuple(x.shape)} (proj {proj is not None})")
+                         f"skip {tuple(x.shape)} upsampled by {up} (proj "
+                         f"{proj is not None})")
     out = h.new_empty(h.shape)
     return _launch(_MODE_RESIDUAL, _readable(h), conv2, out,
-                   skip=_readable(x), proj=proj)
+                   skip=_readable(x), proj=proj, up=up)
 
 
 def conv_head(h: torch.Tensor, head: nn.Conv2d,

@@ -3,23 +3,29 @@
 
 On the CPU: each plain fused op against the NCHW composition the cuDNN
 forward runs (``F.conv2d`` + bias + ReLU + sum) at every width the
-kernels take, within 1e-5 in float32; the same with slice views strided
-as passes 2 and 3 hand them over, read in place; the NHWC forward through
+kernels take, within 1e-5 in float32; the upsampled ops (``up``) against
+``upsample_any`` followed by the plain op, equal, at odd and ragged low
+resolutions; the same with slice views strided as passes 2 and 3 hand
+them over, read in place; the NHWC forward through
 the plain versions against ``Generator.forward``'s cuDNN path for passes
 1 and 2 at stages 1 and 2 and for pass 3, within 1e-5 in float32 and, in
 bf16, within 2^-6 of the output's largest magnitude (the NHWC forward
 rounds once per convolution where the cuDNN path rounds after the
 convolution, the bias and the sum: about two bf16 ulps of the output
-apart); and each condition of the path rule.
+apart); which launches the NHWC forward asks to upsample; each condition
+of the path rule; the widths and factors the wrappers refuse.
 
 On a card (marked ``cuda``; every test skips without one, decided inside
 the test): each kernel against its plain version at the main path's
 shapes and at ragged ones, within one bf16 ulp of the value plus 1e-4 of
 the output's largest magnitude (both sum in float32 in another order and
-round once); two calls bit for bit; a captured replay against the eager
-call; the generator under ``inference_mode`` against its cuDNN forward
-under ``no_grad``; a traced 4x frame without cuDNN's kernels; a graphed
-train step that keeps them; the bundled 4x chain's PSNR on both paths.
+round once); each upsampling launch against ATen's upsample followed by
+the kernel without it, bit for bit; two calls bit for bit; a captured
+replay against the eager call; the generator under ``inference_mode``
+against its cuDNN forward under ``no_grad``; a traced 4x frame without
+cuDNN's kernels, graphed 4x and 8x frames without ATen's stage upsample
+and their launch counts; a graphed train step that keeps cuDNN; the
+bundled 4x chain's PSNR on both paths.
 Imports no JAX, so the card's machine runs it alone:
 
     python -m pytest --noconftest -p no:cacheprovider -q \\
@@ -37,7 +43,8 @@ import torch.nn.functional as F
 from mpgan_torch.models import generator as G
 from mpgan_torch.models import init
 from mpgan_torch.ops import conv_kernel as ck
-from mpgan_torch.ops.upsample import upsample_nchw
+from mpgan_torch import tracing
+from mpgan_torch.ops.upsample import upsample_any, upsample_nchw
 
 torch.set_num_threads(1)
 
@@ -103,6 +110,49 @@ def test_head_plain_matches_conv_and_skip(cin, factors):
     assert got.shape == (2, 8, 8, 1) and got.dtype == torch.float32
     assert _gap(got, _nhwc(want)) <= 1e-5
     assert _gap(ck.conv_head(h, head), _nhwc(G._conv(head, _nchw(h)))) <= 1e-5
+
+
+# the kernels that read an operand upsampled, as (kind, width pair)
+UP_PAIRS = ([("relu", p) for p in sorted(ck.RELU_UP)]
+            + [("residual", p) for p in sorted(ck.RESIDUAL_UP)])
+
+
+def _up_case(kind, pair, up, lo, seed, dtype, device="cpu"):
+    """The inputs of an upsampled launch at the low-resolution slices
+    ``lo`` = (B, h, w) → the fused call and the composition it stands for
+    (ATen's upsample, then the op without it)."""
+    fh, fw = up
+    if kind == "relu":
+        cin, cout = pair
+        conv = _conv(cin, cout, 3, seed).to(device)
+        x = _x((*lo, cin), seed, dtype, device)
+        return (lambda: ck.conv_relu(x, conv, up),
+                lambda: ck.conv_relu(upsample_any(x, fh, fw), conv))
+    c, cx = pair
+    block = G.ResBlock(cx, c, torch.Generator().manual_seed(seed))
+    block = block.to(device)
+    x = _x((*lo, cx), seed, dtype, device).relu()
+    h = _x((lo[0], lo[1] * fh, lo[2] * fw, c), seed + 1, dtype,
+           device).relu()
+    return (lambda: ck.conv_residual(h, block.conv2, x, block.proj, up),
+            lambda: ck.conv_residual(h, block.conv2, upsample_any(x, fh, fw),
+                                     block.proj))
+
+
+@pytest.mark.parametrize("up", sorted(ck.UP_FACTORS))
+@pytest.mark.parametrize("kind,pair", UP_PAIRS)
+def test_upsampled_plain_ops_equal_upsample_then_op(kind, pair, up):
+    """An upsampled op's plain version is ATen's upsample followed by the
+    op, bit for bit, in float32 and bf16, at odd and ragged low-resolution
+    sizes; its output is ``up`` times the input's size."""
+    for lo_hw, dtype in (((5, 7), torch.float32), ((9, 17), torch.bfloat16),
+                         ((1, 3), torch.float32)):
+        fused, composed = _up_case(kind, pair, up, (3, *lo_hw), sum(pair),
+                                   dtype)
+        got, want = fused(), composed()
+        assert got.shape == (3, lo_hw[0] * up[0], lo_hw[1] * up[1],
+                             pair[0] if kind == "residual" else pair[1])
+        assert got.dtype == dtype and torch.equal(got, want)
 
 
 def test_plain_ops_round_once_in_bf16():
@@ -235,6 +285,90 @@ def test_takes_reads_every_width():
                            factors=((2, 2),) * 4).nhwc_widths
 
 
+def _recording(monkeypatch):
+    """Replace the wrappers by recorders that call them: → the list of
+    (wrapper, up) and the list of upsamples run outside a wrapper."""
+    calls, outside, inside = [], [], []
+    for name in ("conv_relu", "conv_residual"):
+        real = getattr(ck, name)
+
+        def rec(*args, _real=real, _name=name, up=(1, 1)):
+            calls.append((_name, tuple(up)))
+            inside.append(1)
+            try:
+                return _real(*args, up=up)
+            finally:
+                inside.pop()
+        monkeypatch.setattr(ck, name, rec)
+    real_up = ck.upsample_any
+
+    def up_any(x, fh, fw):
+        if not inside:
+            outside.append((fh, fw))
+        return real_up(x, fh, fw)
+    monkeypatch.setattr(ck, "upsample_any", up_any)
+    return calls, outside
+
+
+@pytest.mark.parametrize("pass_no", [1, 2, 3])
+def test_forward_nhwc_upsamples_in_each_stage_first_block(pass_no,
+                                                          monkeypatch):
+    """``forward_nhwc`` hands each stage's factors to its first ResBlock's
+    two launches, only where they are not (1, 1), and upsamples nothing
+    itself: the stage input goes to those launches at low resolution."""
+    g = _gen(pass_no, torch.float32, seed=pass_no)
+    calls, outside = _recording(monkeypatch)
+    x = _x((2, 8, 8, 4), pass_no).abs()
+    with torch.no_grad():
+        got = g.forward_nhwc(x, len(g.factors))
+    want = []
+    for k, f in enumerate(g.factors):
+        for i in range(g.n_res_blocks):
+            up = f if i == 0 else (1, 1)
+            want += [("conv_relu", up), ("conv_residual", up)]
+    assert calls == [("conv_relu", (1, 1))] + want
+    assert outside == []
+    fused = [c for c in calls if c[1] != (1, 1)]
+    assert len(fused) == (0 if pass_no == 3 else 2 * len(g.factors))
+    with torch.no_grad():
+        assert _gap(got, g(x)) <= 1e-5
+
+
+def _meta(shape):
+    return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+
+def test_widths_without_an_upsampling_kernel_are_refused():
+    """A card tensor (here on the meta device, which runs no plain
+    version) at widths or factors no upsampling kernel takes raises in the
+    wrapper, before any launch; a generator that would need one keeps
+    cuDNN."""
+    conv16 = _conv(16, 16, 3, 1)
+    for x, conv, up in ((_meta((1, 4, 4, 16)), conv16, (2, 2)),
+                        (_meta((1, 4, 4, 32)), _conv(32, 16, 3, 2), (1, 2)),
+                        (_meta((1, 4, 4, 32)), _conv(32, 16, 3, 2), (4, 4))):
+        with pytest.raises(ValueError, match="no kernel"):
+            ck.conv_relu(x, conv, up)
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.conv_residual(_meta((1, 8, 8, 16)), conv16, _meta((1, 4, 4, 16)),
+                         None, (2, 2))
+    with pytest.raises(ValueError, match="no kernel"):
+        ck.conv_residual(_meta((1, 8, 8, 16)), conv16, _meta((1, 4, 8, 32)),
+                         _conv(32, 16, 1, 3), (2, 2))
+    # 16 -> 16 at a stage's first block: plain kernels, no upsampling one
+    wide = dict(base_filters=32, min_filters=16)
+    assert not G.Generator(4, factors=((2, 2), (2, 1)), **wide).nhwc_widths
+    assert G.Generator(4, factors=((2, 2), (1, 1)), **wide).nhwc_widths
+    assert not G.Generator(4, factors=((1, 2),)).nhwc_widths
+    assert not G.Generator(4, n_res_blocks=0).nhwc_widths
+    assert G.Generator(4, factors=((1, 1),), n_res_blocks=0).nhwc_widths
+
+
+def test_up_launches_is_a_registered_counter():
+    assert tracing.COUNTERS["conv_up"] == (ck, "up_launches")
+    assert tracing.COUNTERS["conv"] == (ck, "launches")
+
+
 # ------------------------------------------------------------ on a card
 
 
@@ -335,19 +469,64 @@ def test_cuda_strided_views_read_in_place(view):
         ..., 0:1], (1, 1), torch.bfloat16))
 
 
+# the growth stage of each upsampling width pair in the bundled generators
+STAGE_OF = {(32, 16): 0, (16, 32): 0, (16, 8): 1, (8, 16): 1, (8, 8): 2}
+
+
+def _frame_slices(pair, up):
+    """The low-resolution slices (B, h, w) an upsampled launch reads in the
+    frame cells: G1's stage k over 64 xy slices of (64·2^k)² at (2, 2), or
+    G2's over xz slices at (2, 1), 256 in the 4x frame and 512 in the 8x
+    (cut to 128)."""
+    k = STAGE_OF[pair]
+    if up == (2, 2):
+        return (64, 64 << k, 64 << k)
+    return (128, 64 << k, 512) if k == 2 else (256, 64 << k, 256)
+
+
+# low-resolution slices whose tiles end inside the upsampled halo: 16 x 32
+# tiles over (18, 34), (38, 46), (18, 45), (26, 33) pixels
+RAGGED_UP = {(2, 2): [(3, 9, 17), (2, 19, 23)],
+             (2, 1): [(3, 9, 45), (2, 13, 33)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", sorted(ck.UP_FACTORS))
+@pytest.mark.parametrize("kind,pair", UP_PAIRS)
+def test_cuda_upsampled_launches_equal_aten_upsample_then_kernel(kind, pair,
+                                                                 up):
+    """Each upsampling launch gives the bits of ATen's upsample followed by
+    the kernel without it, at the frame cells' shape and ragged ones."""
+    dev = _card()
+    for lo in [_frame_slices(pair, up)] + RAGGED_UP[up]:
+        fused, composed = _up_case(kind, pair, up, lo, sum(lo),
+                                   torch.bfloat16, dev)
+        with torch.inference_mode():
+            n0 = (ck.launches, ck.up_launches)
+            got = fused()
+            assert (ck.launches - n0[0], ck.up_launches - n0[1]) == (1, 1)
+            want = composed()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (lo, _gap(got, want),
+                                        int((got != want).sum()))
+        del got, want
+
+
 @pytest.mark.cuda
 def test_cuda_two_runs_bit_for_bit_and_the_launch_count():
     dev = _card()
     g = _gen(1, torch.bfloat16).to(dev)
     x = _x((16, 64, 64, 4), 1, torch.bfloat16, dev).abs()
-    n0 = ck.launches
+    n0 = (ck.launches, ck.up_launches)
     with torch.inference_mode():
         a = g(x)
         b = g(x)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    # stem, 2 stages x 2 blocks x 2, one head; per call
-    assert ck.launches - n0 == 2 * (1 + 2 * 2 * 2 + 1)
+    # stem, 2 stages x 2 blocks x 2, one head; per call; the first block of
+    # each stage upsamples in both of its launches
+    assert ck.launches - n0[0] == 2 * (1 + 2 * 2 * 2 + 1)
+    assert ck.up_launches - n0[1] == 2 * (2 * 2)
 
 
 @pytest.mark.cuda
@@ -358,13 +537,14 @@ def test_cuda_captured_replay_equals_eager():
     x = _x((16, 32, 64, 4), 2, torch.bfloat16, dev).abs()
     with torch.inference_mode():
         eager = g(x)
-        n0 = ck.launches
+        n0 = (ck.launches, ck.up_launches)
         graph = graphed.Graph(lambda: g(x), dev)
-        assert ck.launches == n0 and graph.counts == {"conv": 10}
+        assert (ck.launches, ck.up_launches) == n0
+        assert graph.counts == {"conv": 10, "conv_up": 4}
         out = graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
-        assert ck.launches - n0 == 10
+        assert (ck.launches - n0[0], ck.up_launches - n0[1]) == (10, 4)
         # parameters changed in place are read by the next replay
         with torch.inference_mode(False), torch.no_grad():
             g.head_1.bias.add_(1.0)
@@ -429,6 +609,53 @@ def test_cuda_traced_4x_frame_runs_no_cudnn_kernel():
     names = _device_kernels(lambda: up(lr))
     assert any(OURS in n for n in names), names
     assert not [n for n in names if any(k in n for k in NO_CUDNN)], names
+
+
+def _upsample_input_channels(fn):
+    """The channels of every ATen bilinear upsample's input over ``fn()``
+    (eager: a replay records no operator)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.input_shapes[0][1] for e in prof.events()
+            if e.name == "aten::upsample_bilinear2d"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up_res", [4, 8])
+def test_cuda_graphed_frames_run_no_stage_upsample(up_res):
+    """A graphed 4x or 8x frame runs no ATen NHWC upsample kernel; eagerly,
+    every ATen upsample left is the velocity's (3 channels), none of 8 or
+    more; each frame launches 20 (4x) or 28 (8x) conv kernels, 8 or 12 of
+    them upsampling, eager and replayed."""
+    from mpgan_torch.infer import assemble
+    dev = _card()
+    stages = {4: 2, 8: 3}[up_res]
+    kw = dict(dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    g1 = G.make_pass1(stages, **kw).to(dev)
+    g2 = G.make_pass2(stages, **kw).to(dev)
+    lr = _x((32, 32, 32, 4), up_res, torch.float32, dev).abs()
+    want = {4: (20, 8), 8: (28, 12)}[up_res]
+    n0 = (ck.launches, ck.up_launches)
+    with torch.inference_mode():
+        eager = assemble.upscale_volume(g1, g2, lr, up_res)
+        assert (ck.launches - n0[0], ck.up_launches - n0[1]) == want
+        chans = _upsample_input_channels(
+            lambda: assemble.upscale_volume(g1, g2, lr, up_res))
+    assert chans and all(c < 8 for c in chans), chans
+    up = assemble.make_graphed_upscaler(g1, g2, up_res)
+    for _ in range(3):
+        up(lr)
+    n0 = (ck.launches, ck.up_launches)
+    out = up(lr)
+    torch.cuda.synchronize()
+    assert (ck.launches - n0[0], ck.up_launches - n0[1]) == want
+    assert torch.equal(out, eager)
+    names = _device_kernels(lambda: up(lr))
+    assert any(OURS in n for n in names), names
+    assert not [n for n in names if "upsample_bilinear2d_nhwc" in n], names
 
 
 @pytest.mark.cuda

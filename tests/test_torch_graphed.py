@@ -335,9 +335,12 @@ def test_a_registered_counter_is_put_back_and_added_at_replays(monkeypatch):
     ``Graph.launches``. The CUDA primitives are stubbed."""
     fake = types.ModuleType("fake_kernel")
     fake.launches = 5
+    fake.up_launches = 2
     monkeypatch.setitem(sys.modules, fake.__name__, fake)
     monkeypatch.setattr(tracing, "COUNTERS", dict(tracing.COUNTERS))
-    tracing.count_launches(fake.__name__, fake="launches")
+    # two counters of one module, as conv_kernel's conv and conv_up
+    tracing.count_launches(fake.__name__, fake="launches",
+                           fake_up="up_launches")
 
     class CUDAGraph:
         def replay(self):
@@ -353,13 +356,17 @@ def test_a_registered_counter_is_put_back_and_added_at_replays(monkeypatch):
 
     def fn():
         fake.launches += 3
+        fake.up_launches += 1
         warp_kernel.bwd_launches += 1
     g = graphed.Graph(fn, torch.device("cuda", 0))
-    assert (fake.launches, warp_kernel.bwd_launches) == (5, 7)
-    assert g.counts == {"fake": 3, "warp_bwd": 1} and g.launches == (0, 1)
+    assert (fake.launches, fake.up_launches,
+            warp_kernel.bwd_launches) == (5, 2, 7)
+    assert g.counts == {"fake": 3, "fake_up": 1, "warp_bwd": 1}
+    assert g.launches == (0, 1)
     g.replay()
     g.replay()
-    assert (fake.launches, warp_kernel.bwd_launches) == (11, 9)
+    assert (fake.launches, fake.up_launches,
+            warp_kernel.bwd_launches) == (11, 4, 9)
 
 
 # ------------------------------------------------------------------ card
