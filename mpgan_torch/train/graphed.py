@@ -42,10 +42,12 @@ kernel wrapper is called; a capture's launches do not run then, so
 graph's launches.
 
 Spans (:mod:`mpgan_torch.tracing`): ``graph.capture``, every capture;
-``train.replay``, the host's launch of a train program's replay, with its
-interval on the card. A span given a card inside a captured function (the
-upscaler's passes) is timed on the card at every replay by events recorded
-into the graph, read for the last traced replay.
+``train.replay`` (attribute ``r1``: the program's lazy R1), the host's
+launch of a train program's replay, with its interval on the card. A
+span given a card inside a captured function (the upscaler's passes, the
+train step's D-run, G-run and batches) is timed on the card at every
+replay by events recorded into the graph, read for the last traced
+replay.
 """
 
 from __future__ import annotations
@@ -358,7 +360,7 @@ class Program(GraphedProgram):
         self.step.check_launches(self.graph.launches)
 
     def replay(self) -> dict:
-        with tracing.span("train.replay", self.step.device):
+        with tracing.span("train.replay", self.step.device, r1=self.r1):
             return dict(self.graph.replay())
 
 

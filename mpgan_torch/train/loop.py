@@ -65,7 +65,11 @@ Spans (:mod:`mpgan_torch.tracing`; in the profiler's trace as ranges of
 their names): ``train.step``, one iteration of ``fit``, the parent of
 ``train.replay`` (:mod:`mpgan_torch.train.graphed`) or ``train.eager`` (a
 step run eagerly, timed on the card) and of ``train.read_metrics``, the
-device-to-host read of the metrics at a log point.
+device-to-host read of the metrics at a log point. Inside a step, each
+timed on the card, in a captured program too (by the events its capture
+records into the graph, read for its last traced replay):
+``train.d_run`` and ``train.g_run``, one D-run and one G-run, each the
+parent of ``train.sample``, the assembly of its batch.
 ``debugNans`` checks every loss and gradient before its optimizer step and
 raises ``FloatingPointError`` naming the update and the step at the first
 non-finite value. That is coarser than JAX's ``jax_debug_nans``, which
@@ -349,16 +353,17 @@ class TrainStep:
     def _batch(self, rng: torch.Generator) -> dict:
         """A fresh batch, with the HR targets downsampled when training an
         intermediate growth stage."""
-        b = self.sample(rng)
-        if self.stage == self.n_stages:
-            return b
-        out = dict(b)
-        f = self.up_res // self.s_in
-        fh, fw = (f, f) if self.pass_no == 1 else (f, 1)
-        for k in ("hr", "hr_prev", "hr_next"):
-            if k in b:
-                out[k] = D.downsample_nhwc(b[k], fh, fw)
-        return out
+        with tracing.span("train.sample", self.device):
+            b = self.sample(rng)
+            if self.stage == self.n_stages:
+                return b
+            out = dict(b)
+            f = self.up_res // self.s_in
+            fh, fw = (f, f) if self.pass_no == 1 else (f, 1)
+            for k in ("hr", "hr_prev", "hr_next"):
+                if k in b:
+                    out[k] = D.downsample_nhwc(b[k], fh, fw)
+            return out
 
     def _nan_check(self, what: str) -> str | None:
         return (f"the {what} update at step {self.rt.step}"
@@ -506,10 +511,12 @@ class TrainStep:
         read or advanced."""
         loss_ds, loss_dt = 0.0, 0.0
         for _ in range(self.d_runs):
-            loss_ds, loss_dt = self._d_run(rng, alpha, r1)
+            with tracing.span("train.d_run", self.device):
+                loss_ds, loss_dt = self._d_run(rng, alpha, r1)
         loss_g, aux = 0.0, {}
         for _ in range(self.g_runs):
-            loss_g, aux = self._g_run(rng, alpha)
+            with tracing.span("train.g_run", self.device):
+                loss_g, aux = self._g_run(rng, alpha)
         decay = self.cfg.train.ema_decay
         if decay > 0:
             with torch.no_grad():

@@ -9,7 +9,8 @@
 - Under a CPU ``torch.profiler`` session: the span is a range of its name
   among the profiler's events, starting within 5 ms of the store's start.
 - The program's spans on the CPU: ``Trainer.fit`` stepping eagerly and
-  through the graphed programs (the capture primitive stubbed), and a
+  through the graphed programs (the capture primitive stubbed), a pass-1
+  and a pass-2 step's D-run, G-run and batches among them, and a
   graphed upscaler split over ``cpu:0..2`` as distinct cards, whose every
   pass enqueues all its scatters before any share.
 - Each reader of ``port_bench/metrics/`` over a synthetic span list with a
@@ -52,7 +53,8 @@ torch.set_num_threads(1)
 READERS = ("upscaler.host_ms_per_frame", "upscaler.share_ms_per_frame",
            "upscaler.card0_only_ms_per_frame", "train.replay_gap_pct",
            "train.launch_us_per_step", "upscaler.pass3_ms_per_frame",
-           "upscaler.pass3_roofline")
+           "upscaler.pass3_roofline", "train.sample_ms_per_step",
+           "train.d_run_ms_per_step")
 
 
 @pytest.fixture(autouse=True)
@@ -225,10 +227,16 @@ def test_trainer_spans_stepping_eagerly():
     steps = [s for s in rows if s["name"] == "train.step"]
     assert [s["attrs"]["it"] for s in steps] == [0, 1]
     tree = Counter(_tree(rows))
-    # a D-run aligns the fake and real triplets, the G-run the fake one
+    # a step is a D-run and a G-run, each assembling a batch; a D-run
+    # aligns the fake and real triplets, the G-run the fake one
     assert tree == Counter({("train.step", None): 2,
                             ("train.eager", "train.step"): 2,
-                            ("warp.align", "train.eager"): 6,
+                            ("train.d_run", "train.eager"): 2,
+                            ("train.g_run", "train.eager"): 2,
+                            ("train.sample", "train.d_run"): 2,
+                            ("train.sample", "train.g_run"): 2,
+                            ("warp.align", "train.d_run"): 4,
+                            ("warp.align", "train.g_run"): 2,
                             ("train.read_metrics", "train.step"): 1})
     assert all(s["attrs"]["it"] in (0, 1) for s in rows)
 
@@ -245,6 +253,34 @@ def test_trainer_spans_through_the_graphed_programs(monkeypatch):
     assert tree[("train.eager", "train.step")] == 2
     assert tree[("train.replay", "train.step")] == 2
     assert tree[("train.read_metrics", "train.step")] == 1
+
+
+@pytest.mark.parametrize("pass_no", [1, 2])
+def test_a_captured_step_spans_its_runs_and_batches(monkeypatch, pass_no):
+    """Through the graphed programs, eager at each program's first use and
+    replayed after: every step of pass 1 and of pass 2 is one
+    ``train.d_run`` and one ``train.g_run``, each the parent of one
+    ``train.sample``; a replayed step's rows carry its program's ``r1``
+    and the step's ``it``."""
+    install(monkeypatch)
+    tr = tloop.Trainer(small_config(), tile_creator(), device="cpu",
+                       pass_no=pass_no, graphs=True)
+    with tracing.enable():
+        tr.fit(4, log_every=4)
+    rows = tracing.spans()
+    tree = Counter(_tree(rows))
+    assert tree[("train.eager", "train.step")] == 2
+    assert tree[("train.replay", "train.step")] == 2
+    for run in ("train.d_run", "train.g_run"):
+        assert tree[(run, "train.eager")] == 2
+        assert tree[(run, "train.replay")] == 2
+        assert tree[("train.sample", run)] == 4
+    assert sum(n for (name, _), n in tree.items()
+               if name == "train.sample") == 8
+    replayed = [s for s in rows if s["name"] == "train.sample"
+                and "r1" in s["attrs"]]
+    assert sorted((s["attrs"]["it"], s["attrs"]["r1"]) for s in replayed) \
+        == [(2, False)] * 2 + [(3, False)] * 2
 
 
 def test_split_upscaler_spans_over_cpu_cards(monkeypatch):
@@ -362,6 +398,26 @@ SYNTHETIC = {
          _span("upscale.pass", 1, None, {"pass_no": 3})],
         {"units": 2, "window_s": 1.0, "pass3_flops_per_unit": 989e12 * 5e-3,
          "pass3_bytes_per_unit": 3.35e12 * 1e-3}, 25.0),
+    # three replays of the program without R1 and one with it: the last
+    # traced replay of each read, its batches 1 + 1.5 ms and 2 + 1 ms; the
+    # untimed one left out
+    "train.sample_ms_per_step": (
+        [_span("train.replay", 0.01, (0, 0, 5), {"it": i, "r1": i == 0})
+         for i in range(4)]
+        + [_span("train.sample", 1, (0, 0, 1), {"it": 3, "r1": False}),
+           _span("train.sample", 1, (0, 3, 4.5), {"it": 3, "r1": False}),
+           _span("train.sample", 1, (0, 10, 12), {"it": 0, "r1": True}),
+           _span("train.sample", 1, (0, 15, 16), {"it": 0, "r1": True}),
+           _span("train.sample", 1, None, {"it": 3, "r1": False})],
+        {"units": 4, "window_s": 1.0}, (3 * 2.5 + 3.0) / 4),
+    # the same replays: D-runs of 4 ms without R1 and 8 ms with it
+    "train.d_run_ms_per_step": (
+        [_span("train.replay", 0.01, (0, 0, 5), {"it": i, "r1": i == 0})
+         for i in range(4)]
+        + [_span("train.d_run", 1, (0, 0, 4), {"it": 3, "r1": False}),
+           _span("train.d_run", 1, (0, 10, 18), {"it": 0, "r1": True}),
+           _span("train.g_run", 1, (0, 4, 9), {"it": 3, "r1": False})],
+        {"units": 4, "window_s": 1.0}, (3 * 4.0 + 8.0) / 4),
 }
 
 
